@@ -1,0 +1,147 @@
+// K1: windowed temporal attention, forward, packed (N, T, H*D) layout.
+//
+// Replaces dawn_tpu/ops/local_attention.py::_local_attn_packed_kernel (the
+// Pallas TPU body launched by local_attention_packed). For every sequence n,
+// head h and query i it computes
+//     out[n, i, h] = sum_j softmax_j(q_i . k_j + bias[h, j - i + w]) v_j
+// over the keys j with |j - i| <= w and 0 <= j < T. q is pre-scaled by
+// dh^-0.5 and rotary-rotated by the caller. The TPU kernel gives the keys
+// outside that band a -1e9 additive bias; in f32 their weight is exactly 0,
+// so skipping them here computes the same function.
+//
+// What bounds it on an H100: memory. At the top 128^2 UNet level (N=1024,
+// T=200, H*dh=256, bf16) q, k, v and out come to 4*1024*200*256*2 B = 419 MB,
+// about 125 us at the H100 SXM's 3.35 TB/s; the in-band work is
+// 4*N*H*T*(2w+1)*dh ~ 17 GFLOP, about 17 us at the 989 TFLOP/s bf16 peak.
+// What the design does about it: one pass over q, k, v and out. A block
+// owns one (sequence, head, tile of kQueryTile queries); it stages only the
+// key/value rows the tile's band touches, [q0-w, q1-1+w] cut to [0, T), in
+// shared memory as f32, builds the bias from the (H, 2w+1) vector in shared
+// memory, and writes no score, probability or bias tensor to device memory.
+// One thread owns one query row: scores, the row max and the row sum in f32,
+// p.v accumulated in f32 registers, divided by the row sum once at the end,
+// stored in the input dtype. No tensor cores yet (mma/wgmma, TMA and
+// pipelining are later work).
+//
+// C interface (bound with ctypes):
+//   int dawn_local_attn_packed_fwd(q, k, v, bias, out, n, t, heads, dim_head,
+//                                  window, is_bf16, stream)
+// returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a dim_head it was not built for.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kQueryTile = 128;  // query rows per block, one thread each
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kQueryTile)
+local_attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ bias,
+                         T* __restrict__ out, int seq_len, int heads, int window) {
+  extern __shared__ float smem[];
+  // rows padded to D+1 floats: the threads of a warp read consecutive key
+  // rows at the same column, and the padding puts them in distinct banks
+  constexpr int kStride = D + 1;
+  const int n = blockIdx.x, h = blockIdx.y;
+  const int q0 = blockIdx.z * kQueryTile;
+  const int q1 = min(q0 + kQueryTile, seq_len);      // exclusive
+  const int k0 = max(q0 - window, 0);
+  const int k1 = min(q1 - 1 + window, seq_len - 1);  // inclusive
+  const int rows = k1 - k0 + 1;
+  const int nbias = 2 * window + 1;
+  float* ks = smem;
+  float* vs = ks + rows * kStride;
+  float* bs = vs + rows * kStride;
+
+  const int hd = heads * D;
+  const size_t base = (size_t)n * seq_len * hd + (size_t)h * D;
+  for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    const size_t g = base + (size_t)(k0 + r) * hd + d;
+    ks[r * kStride + d] = to_f32(k[g]);
+    vs[r * kStride + d] = to_f32(v[g]);
+  }
+  for (int e = threadIdx.x; e < nbias; e += blockDim.x)
+    bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
+  __syncthreads();
+
+  const int i = q0 + threadIdx.x;
+  if (i >= q1) return;
+  const size_t row = base + (size_t)i * hd;
+  float qr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) qr[d] = to_f32(q[row + d]);
+  const int j0 = max(i - window, 0), j1 = min(i + window, seq_len - 1);
+
+  // pass 1: the row max of the in-band scores
+  float m = -INFINITY;
+  for (int j = j0; j <= j1; ++j) {
+    const float* kr = ks + (j - k0) * kStride;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+    m = fmaxf(m, s + bs[j - i + window]);
+  }
+  // pass 2: exp, row sum and p.v
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  float l = 0.f;
+  for (int j = j0; j <= j1; ++j) {
+    const float* kr = ks + (j - k0) * kStride;
+    const float* vr = vs + (j - k0) * kStride;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+    const float p = expf(s + bs[j - i + window] - m);
+    l += p;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+  }
+  const float inv = 1.f / l;
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[row + d] = from_f32<T>(acc[d] * inv);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
+                   void* out, int n, int t, int heads, int window,
+                   cudaStream_t stream) {
+  const int rows_max = min(t, kQueryTile + 2 * window);
+  const size_t smem =
+      (2 * (size_t)rows_max * (D + 1) + (2 * (size_t)window + 1)) * sizeof(float);
+  auto kernel = local_attn_packed_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n, heads, (t + kQueryTile - 1) / kQueryTile);
+  kernel<<<grid, kQueryTile, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(out), t, heads, window);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dawn_local_attn_packed_fwd(const void* q, const void* k, const void* v,
+                                          const void* bias, void* out, int n, int t,
+                                          int heads, int dim_head, int window,
+                                          int is_bf16, void* stream) {
+  if (dim_head != 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, bias, out, n, t, heads, window, s)
+                       : launch<float, 32>(q, k, v, bias, out, n, t, heads, window, s));
+}

@@ -1,0 +1,171 @@
+"""FlowDiffusion: the DAWN model proper, a UNet3D diffusion over LFG flow space.
+
+Port of ``dawn_tpu/models/dm/flow_diffusion.py``. ``sample_one_video`` is
+stage 4 of the pipeline: build the condition (HuBERT ++ d-pose ++ d-eye), encode
+the source image with LFG ``compute_fea`` and the face-location mask with
+``FaceLocEncoder``, precompute the step-constant part of the UNet's init conv
+once, run the DDIM over ``Unet3D``, then decode every frame with one batched
+LFG flow-warp pass (or in chunks of ``lfg_decode_chunk`` frames).
+
+Inputs and outputs keep the JAX package's channels-last layouts. The model
+lives on the card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dawn_tpu_torch import resolve_device
+from dawn_tpu_torch.models.dm.diffusion import GaussianDiffusion
+from dawn_tpu_torch.models.dm.unet3d import Unet3D
+from dawn_tpu_torch.models.lfg.blocks import conv
+from dawn_tpu_torch.models.lfg.generator import LFGGenerator
+
+
+class FaceLocEncoder(nn.Module):
+    """Two stride-2 convs embedding the binary face-location mask. The
+    reference never trains nor checkpoints this module (it runs with fresh
+    random weights), so its weights come from the caller's seed."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, 8, 3, stride=2, padding=1)
+        self.conv2 = nn.Conv2d(8, 16, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        x = F.relu(conv(x, self.conv1, torch.float32))
+        return F.relu(conv(x, self.conv2, torch.float32))
+
+
+def generate_bbox_mask(bbox: torch.Tensor, size: int) -> torch.Tensor:
+    """Rasterize the face bbox to a (B, size, size, 1) binary mask.
+
+    bbox: (B, 6) = [x_min, x_max, y_min, y_max, H, W] in image pixels. As the
+    reference does, x is normalized by element 4 (H) and y by element 5 (W),
+    and the corners are truncated to int32."""
+    bbox = bbox.float()
+    x = bbox[:, 0:2] / bbox[:, 4:5] * size
+    y = bbox[:, 2:4] / bbox[:, 5:6] * size
+    x0, x1 = x[:, 0].to(torch.int32), (x[:, 1] + 1).to(torch.int32)
+    y0, y1 = y[:, 0].to(torch.int32), (y[:, 1] + 1).to(torch.int32)
+    idx = torch.arange(size, device=bbox.device)
+    rows, cols = idx[None, :, None], idx[None, None, :]
+    mask = ((rows >= y0[:, None, None]) & (rows <= y1[:, None, None])
+            & (cols >= x0[:, None, None]) & (cols <= x1[:, None, None]))
+    return mask.float()[..., None]
+
+
+@dataclasses.dataclass
+class FlowDiffusionConfig:
+    img_size: int = 128
+    pose_dim: int = 6
+    win_width: int = 40
+    sampling_timesteps: int = 20
+    ddim_sampling_eta: float = 1.0
+    attn_mode: str = "local"              # 'local' (K1) | 'full'
+    fuse_cond: bool = False               # not ported: raises
+    dim_mults: Tuple[int, ...] = (1, 2, 4, 8)
+    dtype: torch.dtype = torch.bfloat16   # UNet compute dtype
+    lfg_dtype: torch.dtype = torch.float32
+    lfg_max_features: int = 512
+    lfg_num_bottleneck: int = 6
+    lfg_decode_chunk: int = 0             # decode frames in chunks (0 = all)
+
+    @property
+    def latent_size(self) -> int:
+        return self.img_size // 4
+
+
+class FlowDiffusion(nn.Module):
+    """Bundles the UNet, the diffusion math, the frozen LFG generator and
+    the mask encoder. Parameters are random (torch's default init) until
+    weights are loaded, e.g. with
+    :func:`dawn_tpu_torch.weights.jax_bridge.load_flow_diffusion_variables`."""
+
+    def __init__(self, config: FlowDiffusionConfig = FlowDiffusionConfig(),
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.device = resolve_device(device)
+        self.unet = Unet3D(dim=64, channels=3 + 256 + 16,
+                           dim_mults=tuple(config.dim_mults), cond_pose=config.pose_dim,
+                           win_width=config.win_width, attn_mode=config.attn_mode,
+                           fuse_cond=config.fuse_cond, dtype=config.dtype)
+        self.diffusion = GaussianDiffusion(
+            timesteps=1000, sampling_timesteps=config.sampling_timesteps,
+            ddim_sampling_eta=config.ddim_sampling_eta)
+        self.generator = LFGGenerator(max_features=config.lfg_max_features,
+                                      num_bottleneck_blocks=config.lfg_num_bottleneck,
+                                      dtype=config.lfg_dtype)
+        self.face_loc = FaceLocEncoder()
+        self.to(self.device)
+        self.eval()
+
+    def build_condition(self, audio_hubert, pose, eye, init_pose, init_eye):
+        """cond = [hubert, pose - init_pose, eye - init_eye]; pose is padded
+        with init_pose's last column when it has fewer dims (pose_dim=7
+        checkpoints driven with 6-d poses)."""
+        p = self.config.pose_dim
+        init_pose, pose = init_pose[:, :p], pose[..., :p]
+        init_pose_b = init_pose[:, None].expand(pose.shape[0], pose.shape[1], -1)
+        if pose.shape[-1] != init_pose.shape[-1]:
+            pose = torch.cat([pose, init_pose_b[..., -1:]], dim=-1)
+        return torch.cat([audio_hubert, pose - init_pose_b, eye - init_eye[:, None]],
+                         dim=-1)
+
+    @torch.no_grad()
+    def sample_one_video(self, sample_img: torch.Tensor, audio_hubert: torch.Tensor,
+                         pose: torch.Tensor, eye: torch.Tensor, bbox: torch.Tensor,
+                         init_pose: Optional[torch.Tensor] = None,
+                         init_eye: Optional[torch.Tensor] = None,
+                         cond_scale: float = 1.0,
+                         noise_seq: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """One image + conditions -> video.
+
+        sample_img: (B, H, W, 3) in [0, 1]; audio_hubert: (B, T, 1024); pose:
+        (B, T, P); eye: (B, T, 2); bbox: (B, 6). init_pose / init_eye default to
+        frame 0 of the driving signals. Noise comes from ``noise_seq``
+        ((steps+1, B, T, h, w, 3)) when given, else from ``generator``.
+        Returns (B, T, ...) 'sample_vid_grid', 'sample_vid_conf',
+        'sample_out_vid' and 'sample_warped_vid'."""
+        cfg, dev = self.config, self.device
+        sample_img, audio_hubert, pose, eye, bbox = (
+            z.to(dev, torch.float32) for z in (sample_img, audio_hubert, pose, eye, bbox))
+        b, t = audio_hubert.shape[:2]
+        ls = cfg.latent_size
+        init_pose = pose[:, 0] if init_pose is None else init_pose.to(dev, torch.float32)
+        init_eye = eye[:, 0] if init_eye is None else init_eye.to(dev, torch.float32)
+        cond = self.build_condition(audio_hubert, pose, eye, init_pose, init_eye)
+
+        fea = self.generator.compute_fea(sample_img)                   # (B, ls, ls, 256)
+        mask_emb = self.face_loc(generate_bbox_mask(bbox, cfg.img_size))  # (B, ls, ls, 16)
+        # fea and mask are constant over the DDIM steps and over frames: their
+        # init_conv contribution is computed once, on one frame
+        static = self.unet(torch.cat([fea[:, None], mask_emb[:, None]], dim=-1),
+                           None, precompute_static=True).expand(b, t, -1, -1, -1)
+
+        def denoise(x, tvec, c, drop):
+            return self.unet(x, tvec, c, drop, static_feat=static)
+
+        pred = self.diffusion.sample(denoise, (b, t, ls, ls, 3), cond, cond_scale,
+                                     noise_seq, generator, dev)
+        grid = pred[..., :2]
+        conf = (pred[..., 2:3] + 1.0) * 0.5
+        ck = cfg.lfg_decode_chunk if cfg.lfg_decode_chunk else t
+        skips = self.generator.encode(sample_img)
+        decoded = [self.generator.decode_shared(sample_img, skips, grid[:, i:i + ck],
+                                                conf[:, i:i + ck])
+                   for i in range(0, t, ck)]
+        return {
+            "sample_vid_grid": grid,
+            "sample_vid_conf": conf,
+            "sample_out_vid": torch.cat([d["prediction"] for d in decoded], dim=1),
+            "sample_warped_vid": torch.cat([d["deformed"] for d in decoded], dim=1),
+        }

@@ -1,0 +1,86 @@
+"""LFG flow-warping generator (Johnson architecture), inference side.
+
+Port of ``dawn_tpu/models/lfg/generator.py:61-165``: ``encode`` gives the skip
+pyramid of a source image, ``compute_fea`` its bottleneck feature (the
+diffusion's image condition), and ``decode_with_flow_batched`` decodes
+(B, T) flow and occlusion videos against the B sources, each encoded once,
+all frames in one batch, every warp gathering the shared source. Module names
+follow the reference generator's ``state_dict``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from dawn_tpu_torch.models.lfg.blocks import (DownBlock2d, ResBlock2d, SameBlock2d,
+                                              UpBlock2d, conv)
+from dawn_tpu_torch.models.lfg.warp import apply_optical_shared, deform_input_shared
+
+
+class LFGGenerator(nn.Module):
+    def __init__(self, num_channels: int = 3, block_expansion: int = 64,
+                 max_features: int = 512, num_down_blocks: int = 2,
+                 num_bottleneck_blocks: int = 6, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.first = SameBlock2d(num_channels, block_expansion, dtype)
+        down, up = [], []
+        for i in range(num_down_blocks):
+            fin = min(max_features, block_expansion * 2 ** i)
+            fout = min(max_features, block_expansion * 2 ** (i + 1))
+            down.append(DownBlock2d(fin, fout, dtype))
+        for i in range(num_down_blocks):
+            fin = min(max_features, block_expansion * 2 ** (num_down_blocks - i))
+            fout = min(max_features, block_expansion * 2 ** (num_down_blocks - i - 1))
+            up.append(UpBlock2d(fin, fout, dtype))
+        self.down_blocks = nn.ModuleList(down)
+        self.up_blocks = nn.ModuleList(up)
+        bottleneck_features = min(max_features, block_expansion * 2 ** num_down_blocks)
+        self.bottleneck = nn.Sequential(OrderedDict(
+            (f"r{i}", ResBlock2d(bottleneck_features, dtype))
+            for i in range(num_bottleneck_blocks)))
+        self.final = nn.Conv2d(block_expansion, num_channels, 7, padding=3)
+
+    def encode(self, source_image: torch.Tensor) -> List[torch.Tensor]:
+        """Skip pyramid [s0 (full res), ..., s_n (bottleneck)] of (N, H, W, 3)."""
+        out = self.first(source_image)
+        skips = [out]
+        for blk in self.down_blocks:
+            out = blk(out)
+            skips.append(out)
+        return skips
+
+    def compute_fea(self, source_image: torch.Tensor) -> torch.Tensor:
+        """Bottleneck feature (N, H/4, W/4, 256)."""
+        return self.encode(source_image)[-1]
+
+    def decode_shared(self, source_image: torch.Tensor, skips: List[torch.Tensor],
+                      optical_flow: torch.Tensor, occlusion_map: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Warp + decode with per-identity skips; flow (B, T, h, w, 2), occlusion
+        (B, T, h, w, 1). Returns (B, T, H, W, 3) 'prediction' and 'deformed'."""
+        b, t = optical_flow.shape[:2]
+        out = apply_optical_shared(skips[-1], optical_flow, occlusion_map)
+        out = self.bottleneck(out)
+        for i, up in enumerate(self.up_blocks):
+            out = apply_optical_shared(skips[-(i + 1)], optical_flow, occlusion_map, out)
+            out = up(out)
+        out = apply_optical_shared(skips[0], optical_flow, occlusion_map, out)
+        out = torch.sigmoid(conv(out, self.final, self.dtype))
+        out = apply_optical_shared(source_image.to(out.dtype), optical_flow,
+                                   occlusion_map, out)
+        return {
+            "prediction": out.reshape((b, t) + out.shape[1:]).float(),
+            "deformed": deform_input_shared(source_image, optical_flow).float(),
+        }
+
+    def decode_with_flow_batched(self, source_image: torch.Tensor,
+                                 optical_flow: torch.Tensor,
+                                 occlusion_map: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """source_image (B, H, W, 3); flow (B, T, h, w, 2); occlusion (B, T, h, w, 1)."""
+        return self.decode_shared(source_image, self.encode(source_image),
+                                  optical_flow, occlusion_map)

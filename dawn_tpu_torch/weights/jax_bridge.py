@@ -1,0 +1,186 @@
+"""Carry the JAX package's FlowDiffusion variables into the port.
+
+``load_flow_diffusion_variables(model, variables)`` takes the variables as
+nested dicts of numpy arrays, ``{'unet': {'params'}, 'generator': {'params',
+'batch_stats'}, 'face_loc': {'params'}}``, and fills a port ``FlowDiffusion``.
+It is the inverse of the reference-checkpoint converter of the JAX package
+(``dawn_tpu/weights/torch_convert.py``), written anew here:
+
+- Dense (in, out) -> Linear.weight (out, in);
+- HWIO conv -> OIHW, or (O, I, 1, kh, kw) for the UNet's per-frame Conv3d;
+- the pre-flipped HWIO Upsample kernel -> ConvTranspose3d (I, O, 1, kh, kw);
+- GroupNorm / BatchNorm scale, bias -> weight, bias; BatchNorm mean, var ->
+  running_mean, running_var;
+- channel LayerNorm gamma -> (1, C, 1, 1, 1) ``gamma`` or (C,) ``g``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from dawn_tpu_torch.ops.convs import unflip_conv_transpose_weight
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _dense(p: Mapping[str, Any]) -> StateDict:
+    sd = {"weight": np.asarray(p["kernel"]).T}
+    if "bias" in p:
+        sd["bias"] = np.asarray(p["bias"])
+    return sd
+
+
+def _conv2d(p: Mapping[str, Any]) -> StateDict:
+    sd = {"weight": np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))}
+    if "bias" in p:
+        sd["bias"] = np.asarray(p["bias"])
+    return sd
+
+
+def _conv3d(p: Mapping[str, Any]) -> StateDict:
+    sd = _conv2d(p)
+    sd["weight"] = sd["weight"][:, :, None]
+    return sd
+
+
+def _norm(p: Mapping[str, Any]) -> StateDict:
+    return {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
+
+
+def _under(prefix: str, sd: StateDict) -> StateDict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _cross_attn(p: Mapping[str, Any]) -> StateDict:
+    sd = {"norm.g": np.asarray(p["norm"]["gamma"]),
+          "to_out.1.g": np.asarray(p["out_norm"]["gamma"]),
+          **_under("to_q", _dense(p["to_q"])), **_under("to_kv", _dense(p["to_kv"])),
+          **_under("to_out.0", _dense(p["to_out"]))}
+    for name in ("null_kv", "q_scale", "k_scale"):
+        sd[name] = np.asarray(p[name])
+    return sd
+
+
+def _resnet(p: Mapping[str, Any]) -> StateDict:
+    sd: StateDict = {}
+    for blk in ("block1", "block2"):
+        sd.update(_under(f"{blk}.proj", _conv3d(p[blk]["proj"])))
+        sd.update(_under(f"{blk}.norm", _norm(p[blk]["norm"])))
+    for mlp in ("time_mlp", "audio_mlp", "pose_mlp", "eye_mlp"):
+        if mlp in p:
+            sd.update(_under(f"{mlp}.1", _dense(p[mlp])))
+    for branch in ("aud", "pose", "eye"):
+        if f"cross_attn_{branch}" in p:
+            sd.update(_under(f"cross_attn_{branch}", _cross_attn(p[f"cross_attn_{branch}"])))
+    if "res_conv" in p:
+        sd.update(_under("res_conv", _conv3d(p["res_conv"])))
+    return sd
+
+
+def attention_block_state_dict(p: Mapping[str, Any]) -> StateDict:
+    """Params of the JAX ``PreNormResidualTemporal`` / ``PreNormResidualSpatialFull``
+    -> the port's Residual(PreNorm(ToTokens(attention))) block."""
+    return {"fn.norm.gamma": np.asarray(p["norm"]["gamma"]).reshape(1, -1, 1, 1, 1),
+            **_under("fn.fn.fn.to_qkv", _dense(p["attn"]["to_qkv"])),
+            **_under("fn.fn.fn.to_out", _dense(p["attn"]["to_out"]))}
+
+
+def _spatial_linear(p: Mapping[str, Any]) -> StateDict:
+    return {"fn.norm.gamma": np.asarray(p["norm"]["gamma"]).reshape(1, -1, 1, 1, 1),
+            **_under("fn.fn.to_qkv", _conv2d(p["attn"]["to_qkv"])),
+            **_under("fn.fn.to_out", _conv2d(p["attn"]["to_out"]))}
+
+
+def unet_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """The JAX Unet3D params -> the port's (reference-named) state_dict."""
+    sd: StateDict = {
+        "time_rel_pos_bias.relative_attention_bias.weight":
+            np.asarray(params["time_rel_pos_bias"]),
+        **_under("init_conv", _conv3d(params["init_conv"])),
+        **_under("init_temporal_attn",
+                 attention_block_state_dict(params["init_temporal_attn"])),
+        **_under("time_mlp.1", _dense(params["time_mlp_1"])),
+        **_under("time_mlp.3", _dense(params["time_mlp_2"])),
+        **_under("mid_block1", _resnet(params["mid_block1"])),
+        **_under("mid_spatial_attn", attention_block_state_dict(params["mid_spatial_attn"])),
+        **_under("mid_temporal_attn",
+                 attention_block_state_dict(params["mid_temporal_attn"])),
+        **_under("mid_block2", _resnet(params["mid_block2"])),
+        **_under("final_conv.0", _resnet(params["final_block"])),
+        **_under("final_conv.1", _conv3d(params["final_conv"])),
+        **_under("occlusion_map.0", _resnet(params["occlusion_block"])),
+        **_under("occlusion_map.1", _conv3d(params["occlusion_conv"])),
+    }
+    i = 0
+    while f"down_{i}_block1" in params:
+        for side, key in (("down", "downs"), ("up", "ups")):
+            sd.update(_under(f"{key}.{i}.0", _resnet(params[f"{side}_{i}_block1"])))
+            sd.update(_under(f"{key}.{i}.1", _resnet(params[f"{side}_{i}_block2"])))
+            sd.update(_under(f"{key}.{i}.2", _spatial_linear(params[f"{side}_{i}_spatial"])))
+            sd.update(_under(f"{key}.{i}.3",
+                             attention_block_state_dict(params[f"{side}_{i}_temporal"])))
+        if f"down_{i}_downsample" in params:
+            sd.update(_under(f"downs.{i}.4", _conv3d(params[f"down_{i}_downsample"]["conv"])))
+        if f"up_{i}_upsample" in params:
+            up = params[f"up_{i}_upsample"]
+            sd[f"ups.{i}.4.weight"] = unflip_conv_transpose_weight(up["kernel"])[:, :, None]
+            sd[f"ups.{i}.4.bias"] = np.asarray(up["bias"])
+        i += 1
+    return sd
+
+
+def _lfg_block(p: Mapping[str, Any], s: Mapping[str, Any]) -> StateDict:
+    sd: StateDict = {}
+    for name in p:
+        if name.startswith("conv"):
+            sd.update(_under(name, _conv2d(p[name])))
+        else:
+            sd.update(_under(name, _norm(p[name])))
+            sd[f"{name}.running_mean"] = np.asarray(s[name]["mean"])
+            sd[f"{name}.running_var"] = np.asarray(s[name]["var"])
+    return sd
+
+
+def generator_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """LFGGenerator {params, batch_stats} -> the port's state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for name in params:
+        if name == "final":
+            sd.update(_under("final", _conv2d(params[name])))
+            continue
+        prefix, _, idx = name.rpartition("_")
+        key = {"down_blocks": f"down_blocks.{idx}", "up_blocks": f"up_blocks.{idx}",
+               "bottleneck": f"bottleneck.r{idx}"}.get(prefix, name)
+        sd.update(_under(key, _lfg_block(params[name], stats[name])))
+    return sd
+
+
+def face_loc_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    return {**_under("conv1", _conv2d(variables["params"]["conv1"])),
+            **_under("conv2", _conv2d(variables["params"]["conv2"]))}
+
+
+def load_state(module: torch.nn.Module, sd: StateDict) -> None:
+    """Copy ``sd`` into ``module``; every parameter and statistic must be
+    covered (only BatchNorm's num_batches_tracked has no JAX counterpart)."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in sd if k not in own]
+    if missing or unexpected:
+        raise KeyError(f"missing {missing[:8]}, unexpected {unexpected[:8]}")
+    with torch.no_grad():
+        for k, v in sd.items():
+            if own[k].shape != v.shape:
+                raise ValueError(f"{k}: shape {v.shape} != {tuple(own[k].shape)}")
+            own[k].copy_(torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)))
+
+
+def load_flow_diffusion_variables(model, variables: Mapping[str, Any]) -> None:
+    """Fill a port FlowDiffusion in place from the JAX variables tree."""
+    load_state(model.unet, unet_state_dict(variables["unet"]["params"]))
+    load_state(model.generator, generator_state_dict(variables["generator"]))
+    load_state(model.face_loc, face_loc_state_dict(variables["face_loc"]))
