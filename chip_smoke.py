@@ -11,7 +11,9 @@ non-zero:
 2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc.
 3. kernel K1 - the windowed-attention kernel against its plain PyTorch
    version on the card (TF32 off), case by case with max error and
-   tolerance; at the main-path shape (N=1024 sequences, T=200, 8 heads x 32,
+   tolerance (the sampling shape, the stage-1 training shape N=4096, T=20,
+   w=20 in f32 and bf16, stage 2 at T=40, T=77, T=1, T=256, T=129, no
+   bias); at the main-path shape (N=1024 sequences, T=200, 8 heads x 32,
    w=40, bf16) the kernel, the plain version and one library call
    (F.scaled_dot_product_attention with the (H, T, T) bias and window mask,
    a yardstick the port never calls) are timed with CUDA events, beside the
@@ -27,7 +29,27 @@ non-zero:
    frames/s and peak device memory.
 6. profile - the warm path once more under torch.profiler: device busy
    share and the kernels with the most device time.
-7. kernels - one JSON line listing every ported kernel with its numbers.
+7. kernel K2 - the windowed-attention backward against its plain version on
+   the card (TF32 off), case by case (stage-1 shape f32 and bf16, stage 2 at
+   T=40, T=77, T=1, T=129, T=256, no bias): dq, dk, dv, dvec errors with
+   their tolerances; autograd through local_attention_packed on CUDA tensors
+   (K1 forward, K2 backward) against the plain version's autograd; at the
+   stage-1 shape the kernel, the plain version, one library call (the
+   backward of F.scaled_dot_product_attention, never called by the port) and
+   K1 with its plain version and SDPA are timed, beside their bounds.
+8. train-parity - one f32 stage-1 DMTrainer.train_step at full width on the
+   card (kernels) and on the CPU (plain path), bs 1, 4 frames, the same
+   weights and draws, TF32 off: loss terms, gradients (Adam's first moment)
+   and the update, each with its tolerance; 10 K1 and 10 K2 launches.
+9. train path - ``python -m dawn_tpu_torch.scripts.train_dm``'s entry point on a
+   synthetic chunked-npy HDTF tree (8 videos x 100 frames): stage 1 at bs 4,
+   20 frames, 128^2, full width, bf16 compute, uncached teacher with color
+   jitter, 4 steps resumed from a saved step-0 checkpoint; then 2 stage-2
+   steps. Checks finite losses, changed parameters and EMA, the checkpoint
+   round trip, and exactly 10 K1 and 10 K2 launches per step; reports the
+   warm step time, examples/s, peak memory, and under torch.profiler the
+   device's busy share and the kernels with the most device time.
+10. kernels - one JSON line listing every ported kernel with its numbers.
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -35,6 +57,7 @@ is {"ok": true, "device": {...}}.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -87,8 +110,14 @@ def kernel_k1(card, rates):
         vec = torch.randn(heads, 2 * w + 1, device="cuda", generator=gen) if bias else None
         return (q * d ** -0.5).to(dtype), k.to(dtype), v.to(dtype), vec
 
+    # the sampling shape (T=200, w=40), then the training shapes: stage 1's
+    # top UNet level (4 x 32^2 sequences of 20 frames, w=20 >= T-1, so every
+    # key is in band) and stage 2's largest length bucket (40 frames)
     cases = [("main f32", 1024, 200, 8, 32, 40, torch.float32, True, 1e-4),
              ("main bf16", 1024, 200, 8, 32, 40, torch.bfloat16, True, 2e-2),
+             ("stage-1 f32", 4096, 20, 8, 32, 20, torch.float32, True, 1e-4),
+             ("stage-1 bf16", 4096, 20, 8, 32, 20, torch.bfloat16, True, 2e-2),
+             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, torch.bfloat16, True, 2e-2),
              ("T=77 w=20", 64, 77, 8, 32, 20, torch.float32, True, 1e-4),
              ("T=1", 64, 1, 8, 32, 40, torch.float32, True, 1e-4),
              ("T=256", 64, 256, 8, 32, 40, torch.float32, True, 1e-4),
@@ -130,6 +159,149 @@ def kernel_k1(card, rates):
                 bound_ms=bound[bound_by], bound_by=bound_by, library_ms=library_ms)
 
 
+def write_hdtf_tree(root, lengths, size, seed):
+    """A synthetic chunked-npy HDTF tree (the layout of scripts/bench_train.py
+    --input-pipeline): per video and modality 25-frame chunk_%04d.npy blocks,
+    uint8 frames, f32 hubert (1024), pose (7), eye (8) and lmk (68, 2) in
+    pixels, and length_dict.pkl. ``lengths`` maps video names to frame
+    counts. Returns the CLI's data flags."""
+    import pickle
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    kinds = [("frames", (size, size, 3)), ("hubert", (1024,)), ("pose", (7,)),
+             ("eye", (8,)), ("lmk", (68, 2))]
+    for name, total in lengths.items():
+        for kind, shape in kinds:
+            d = os.path.join(root, kind, name)
+            os.makedirs(d, exist_ok=True)
+            for bi in range(-(-total // 25)):
+                arr = rng.rand(min(25, total - bi * 25), *shape)
+                arr = ((arr * 255).astype(np.uint8) if kind == "frames"
+                       else (arr * size).astype(np.float32) if kind == "lmk"
+                       else arr.astype(np.float32))
+                np.save(os.path.join(d, f"chunk_{bi:04d}.npy"), arr)
+    with open(os.path.join(root, "length_dict.pkl"), "wb") as f:
+        pickle.dump(dict(lengths), f)
+    return [f"--{kind}-dir={os.path.join(root, kind)}" for kind, _ in kinds] + [
+        f"--length-dict={os.path.join(root, 'length_dict.pkl')}"]
+
+
+def band_entries(t, w):
+    """In-band (query, key) pairs of one (sequence, head)."""
+    return sum(min(t - 1, i + w) - max(0, i - w) + 1 for i in range(t))
+
+
+def kernel_k2(card, rates):
+    """Phase: K2 against its plain version, the autograd Function on the
+    card against the plain version's autograd, timings at the stage-1 shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def inputs(n, t, heads, d, w, dtype, bias=True):
+        q, k, v, g = (torch.randn(n, t, heads * d, device="cuda", generator=gen)
+                      for _ in range(4))
+        vec = torch.randn(heads, 2 * w + 1, device="cuda", generator=gen) if bias else None
+        return (q * d ** -0.5).to(dtype), k.to(dtype), v.to(dtype), g.to(dtype), vec
+
+    # stage 1: 4 x 32^2 sequences of 20 frames at the top UNet level, w=20;
+    # stage 2: its largest length bucket, 40 diffused frames. Tolerances are
+    # on max|err| / max(1, max|ref|): f32 1e-4 (sum order); bf16 2e-2 for
+    # dq/dk/dv (stored in bf16, the kernel keeps p and dS in f32 where the
+    # JAX kernel casts them to bf16) and 1e-3 for the f32 dvec.
+    cases = [("stage-1 f32", 4096, 20, 8, 32, 20, torch.float32, True),
+             ("stage-1 bf16", 4096, 20, 8, 32, 20, torch.bfloat16, True),
+             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, torch.bfloat16, True),
+             ("T=77 w=20", 64, 77, 8, 32, 20, torch.float32, True),
+             ("T=1", 64, 1, 8, 32, 20, torch.float32, True),
+             ("T=129", 64, 129, 8, 32, 40, torch.float32, True),
+             ("T=256", 64, 256, 8, 32, 40, torch.float32, True),
+             ("no bias", 64, 200, 8, 32, 40, torch.float32, False)]
+    errs = {}
+    for name, n, t, heads, d, w, dtype, bias in cases:
+        q, k, v, g, vec = inputs(n, t, heads, d, w, dtype, bias)
+        got = la.local_attention_packed_bwd(q, k, v, g, vec, w, heads)
+        ref = la.local_attention_packed_bwd_plain(q, k, v, g, vec, w, heads)
+        torch.cuda.synchronize()
+        parts = []
+        for label, a, b in zip(("dq", "dk", "dv", "dvec"), got, ref):
+            if b is None:
+                check(a is None, f"K2 {name}: {label} should be None")
+                continue
+            tol = 1e-3 if label == "dvec" and dtype == torch.bfloat16 else (
+                2e-2 if dtype == torch.bfloat16 else 1e-4)
+            err = (a.float() - b.float()).abs().max().item()
+            rel = err / max(1.0, b.float().abs().max().item())
+            errs[(name, label)] = err
+            parts.append(f"{label} {err:.3e} (rel {rel:.3e}, tol {tol:g})")
+            check(np.isfinite(err) and rel <= tol, f"K2 {name} {label} error {rel} > {tol}")
+        print(f"kernel K2 {name}: N={n} T={t} H={heads} dh={d} w={w} {str(dtype)[6:]} "
+              + ", ".join(parts), flush=True)
+
+    # fault 1: a loss through local_attention_packed on CUDA tensors must
+    # reach q, k, v and the bias vector, through K1 forward and K2 backward
+    n, t, heads, d, w = 64, 40, 8, 32, 20
+    q, k, v, g, vec = inputs(n, t, heads, d, w, torch.float32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, vec)]
+    k1_before, k2_before = la.local_attention_packed.launches, la.local_attention_packed_bwd.launches
+    out = la.local_attention_packed(*leaves, w, heads)
+    check(out.grad_fn is not None, "K1 output on the card has no grad_fn")
+    got = torch.autograd.grad(out, leaves, g)
+    check(la.local_attention_packed.launches - k1_before == 1
+          and la.local_attention_packed_bwd.launches - k2_before == 1,
+          "autograd did not go through K1 and K2")
+    ref = torch.autograd.grad(la.local_attention_packed_plain(*leaves, w, heads), leaves, g)
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    print(f"kernel K2 autograd: grad of local_attention_packed on the card (K1 + K2) vs "
+          f"autograd of the plain version, N={n} T={t} f32: max_abs_err={err:.3e} tol=1e-4",
+          flush=True)
+    check(err <= 1e-4, f"K2 autograd error {err}")
+
+    n, t, heads, d, w = 4096, 20, 8, 32, 20
+    q, k, v, g, vec = inputs(n, t, heads, d, w, torch.bfloat16)
+    ms = time_ms(lambda: la.local_attention_packed_bwd(q, k, v, g, vec, w, heads), 20)
+    plain_ms = time_ms(lambda: la.local_attention_packed_bwd_plain(q, k, v, g, vec, w, heads), 5)
+    q4, k4, v4, g4 = (x.view(n, t, heads, d).transpose(1, 2).contiguous() for x in (q, k, v, g))
+    q4, k4, v4 = (x.requires_grad_() for x in (q4, k4, v4))
+    mask = la.windowed_bias(t, w, vec, "cuda").to(torch.bfloat16)[None]   # (1, H, T, T)
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0)
+    lib = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True)
+    library_ms = time_ms(lib, 20)
+    ref = la.local_attention_packed_bwd_plain(q, k, v, g, vec, w, heads)
+    lib_err = max((a.transpose(1, 2).reshape(n, t, heads * d).float() - b.float())
+                  .abs().max().item() for a, b in zip(lib(), ref[:3]))
+    k1_ms = time_ms(lambda: la.local_attention_packed(q, k, v, vec, w, heads), 20)
+    k1_plain_ms = time_ms(lambda: la.local_attention_packed_plain(q, k, v, vec, w, heads), 5)
+    with torch.no_grad():
+        k1_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=1.0), 20)
+    k1_bounds = {"bytes": (4 * n * t * heads * d * 2 + vec.numel() * 4) / rates[0] * 1e3,
+                 "operations": 4 * d * band_entries(t, w) * n * heads / rates[1] * 1e3}
+    k1_by = max(k1_bounds, key=k1_bounds.get)
+
+    band = band_entries(t, w)
+    bytes_moved = 7 * n * t * heads * d * 2 + 2 * vec.numel() * 4
+    flops = 10 * d * band * n * heads
+    bw, bf16_peak, _ = rates
+    bound = {"bytes": bytes_moved / bw * 1e3, "operations": flops / bf16_peak * 1e3}
+    bound_by = max(bound, key=bound.get)
+    print(f"kernel K2 timing [{card}] stage-1 shape bf16 (N={n} T={t} 8x32 w={w}): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa backward, dq/dk/dv only, "
+          f"err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound[bound_by]:.4f} ms by "
+          f"{bound_by} ({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); K1 at the "
+          f"same shape {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, library (sdpa) "
+          f"{k1_library_ms:.4f} ms, bound {k1_bounds[k1_by]:.4f} ms by {k1_by}", flush=True)
+    return dict(max_abs_err=max(errs[("stage-1 bf16", x)] for x in ("dq", "dk", "dv")),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound[bound_by], bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def inputs_for(t, img_size, seed):
     import torch
     g = torch.Generator().manual_seed(seed)
@@ -156,9 +328,9 @@ def parity():
     inp = inputs_for(t, cfg.img_size, SEED + 1)
     noise = torch.randn((steps + 1, 1, t, cfg.latent_size, cfg.latent_size, 3),
                         generator=torch.Generator().manual_seed(SEED + 2))
-    before = _k1().launches
+    before = _counts()[0]
     out_gpu = gpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"].cpu()
-    check(_k1().launches - before == 10 * steps, "parity run did not go through K1")
+    check(_counts()[0] - before == 10 * steps, "parity run did not go through K1")
     out_cpu = cpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"]
     err = (out_gpu - out_cpu).abs().max().item()
     print(f"parity: sample_one_video T={t} steps={steps} f32 full width, card (K1) vs CPU "
@@ -166,11 +338,6 @@ def parity():
     check(err <= 1e-3, f"parity error {err}")
     del gpu, cpu
     torch.cuda.empty_cache()
-
-
-def _k1():
-    from dawn_tpu_torch.ops.local_attention import local_attention_packed
-    return local_attention_packed
 
 
 def main_path(card):
@@ -195,12 +362,12 @@ def main_path(card):
     run()
     cold = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    k1 = _k1()
-    k1.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     out = run()
     secs = time.perf_counter() - t0
-    launches = k1.launches
+    launches, k2_launches = _counts()
+    check(k2_launches == 0, f"sampling launched K2 {k2_launches} times")
     vid = out["sample_out_vid"]
     check(tuple(vid.shape) == (1, t, 128, 128, 3), f"video shape {tuple(vid.shape)}")
     check(bool(torch.isfinite(vid).all()), "video has non-finite values")
@@ -216,25 +383,215 @@ def main_path(card):
     return launches
 
 
-def profile(run, card):
-    """Phase 6: where the warm path's device time goes (torch.profiler)."""
+def profile(run, card, what="profile"):
+    """Where a warm run's device time goes (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()         # kernels, not annotated spans
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
-    print(f"profile [{card}]: warm path under the profiler {wall:.3f} s, device busy "
+    print(f"{what} [{card}]: warm run under the profiler {wall:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f} %), {sum(e.count for e in kernels)} "
           f"kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
+        print(f"{what}   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
               f"{e.key[:110]}", flush=True)
+
+
+def _reset_counts():
+    from dawn_tpu_torch.ops import local_attention as la
+    la.local_attention_packed.launches = 0
+    la.local_attention_packed_bwd.launches = 0
+
+
+def _counts():
+    from dawn_tpu_torch.ops import local_attention as la
+    return la.local_attention_packed.launches, la.local_attention_packed_bwd.launches
+
+
+def _train_batch(b, t, size, seed):
+    import numpy as np
+    r = np.random.RandomState(seed)
+    return {"video": (r.rand(b, t, size, size, 3) * 255).astype(np.uint8),
+            "hubert": r.randn(b, t, 1024).astype(np.float32),
+            "pose": 0.1 * r.randn(b, t, 7).astype(np.float32),
+            "blink": r.rand(b, t, 2).astype(np.float32),
+            "bbox": np.tile([30.0, 98.0, 25.0, 105.0, size, size], (b, 1)).astype(np.float32),
+            "mouth_lmk": (40 + 40 * r.rand(b, t, 19, 2)).astype(np.float32)}
+
+
+def train_parity():
+    """Phase 8: one f32 stage-1 train step, the card (K1, K2) against the CPU
+    (plain path), full width, same weights and draws, TF32 off."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, t, lr = 1, 4, 2e-4
+    cfg = DMTrainConfig(win_width=20, lr=lr)       # 128^2, full width, f32, jitter on
+    torch.manual_seed(SEED)
+    gpu = DMTrainer(cfg, device="cuda")
+    cpu = DMTrainer(cfg, device="cpu")
+    for a, c in ((gpu.unet, cpu.unet), (gpu.flow_ae, cpu.flow_ae), (gpu.face_loc, cpu.face_loc)):
+        c.load_state_dict(a.state_dict())
+    cpu.ema = [e.cpu().clone() for e in gpu.ema]
+    r = np.random.RandomState(SEED + 5)
+    ls = cfg.latent_size
+    draws = {"t": np.array([371]), "noise": r.randn(b, t, ls, ls, 3).astype(np.float32),
+             "drop": np.array([[False, True, False, False]]),
+             "jitter": {k: torch.tensor([v]) for k, v in (
+                 ("brightness", 1.1), ("contrast", 0.9), ("saturation", 1.2), ("hue", 0.02))}}
+    batch = _train_batch(b, t, cfg.img_size, SEED + 6)
+    before = [p.detach().cpu().clone() for p in gpu.unet.parameters()]
+    _reset_counts()
+    got = gpu.train_step(batch, draws)
+    launches = _counts()
+    want = cpu.train_step(batch, draws)
+    check(launches == (10, 10), f"train-parity launches (K1, K2) {launches} != (10, 10)")
+    for k in ("loss", "floss", "mouth_loss", "total"):
+        check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
+              f"train-parity {k}: {got[k]} vs {want[k]}")
+    # gradients through Adam's first moment (0.1 x the clipped gradient): to
+    # 1e-3 of the largest; the update: Adam's first step is about lr * sign(g),
+    # so elements with |mu| above 1e-3 of the largest agree to 1e-7 (+1e-6
+    # relative), the rest to 2 lr + 1e-7 (a rounding difference may flip a
+    # near-zero gradient's sign)
+    pairs = list(zip(gpu.unet.parameters(), cpu.unet.parameters(), before))
+    mu = [(gpu.optimizer.state[a]["mu"].cpu(), cpu.optimizer.state[c]["mu"]) for a, c, _ in pairs]
+    mu_max = max(m.abs().max().item() for _, m in mu)
+    mu_err = max((g - c).abs().max().item() for g, c in mu) / mu_max
+    upd_err = clear_err = 0.0
+    for (a, c, old), (_, m) in zip(pairs, mu):
+        diff = (a.detach().cpu() - c.detach()).abs()
+        upd_err = max(upd_err, diff.max().item())
+        clear = m.abs() > 1e-3 * mu_max
+        if clear.any():
+            clear_err = max(clear_err, (diff[clear] - 1e-6 * old[clear].abs()).max().item())
+    print(f"train-parity: stage-1 train_step f32 full width bs {b} T={t}, card (K1 x "
+          f"{launches[0]}, K2 x {launches[1]}) vs CPU (plain), TF32 off: total "
+          f"{got['total']:.6f} vs {want['total']:.6f}, loss {got['loss']:.6f} vs "
+          f"{want['loss']:.6f}, floss {got['floss']:.6f} vs {want['floss']:.6f}, mouth "
+          f"{got['mouth_loss']:.6f} vs {want['mouth_loss']:.6f} (tol 1e-4 rel); grad norm "
+          f"{got['grad_norm']:.5f} vs {want['grad_norm']:.5f}; Adam mu max err "
+          f"{mu_err:.3e} of its max (tol 1e-3); update max err {upd_err:.3e} (tol "
+          f"{2 * lr + 1e-7:.3g}), where |mu| > 1e-3 max {clear_err:.3e} (tol 1e-7)", flush=True)
+    check(mu_err <= 1e-3, f"train-parity gradient error {mu_err}")
+    check(upd_err <= 2 * lr + 1e-7 and clear_err <= 1e-7,
+          f"train-parity update error {upd_err} / {clear_err}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def train_path(card):
+    """Phase 9: the training CLI at the per-chip recipe point; returns (K1,
+    K2) launches of its stage-1 and stage-2 runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    import yaml
+    from dawn_tpu_torch.scripts import train_dm as cli
+    from dawn_tpu_torch.train.data import HDTFVideoDataset
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dawn_train_")
+    flags = write_hdtf_tree(os.path.join(tmp, "data"),
+                            {f"vid_{i:03d}": 100 for i in range(8)}, 128, SEED + 7)
+
+    def config(name):
+        with open(os.path.join(root, "configs", name)) as f:
+            cfg = yaml.safe_load(f)
+        cfg.update(batch_size=4, compute_dtype="bfloat16")   # the per-chip recipe point
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    work1, work2, steps = os.path.join(tmp, "s1"), os.path.join(tmp, "s2"), 4
+    base = [f"--config={config('dm_train_stage1.yaml')}", *flags, "--log-every=1",
+            f"--workdir={work1}"]
+    cli.main(base + ["--steps=0"])              # the step-0 checkpoint
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(base + [f"--steps={steps}", "--restore"])
+    secs = time.perf_counter() - t0
+    launches1 = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(launches1 == (10 * steps, 10 * steps),
+          f"stage-1 launches (K1, K2) {launches1} != {10 * steps} each")
+    lines = [json.loads(x) for x in open(os.path.join(work1, "metrics.jsonl"))]
+    check([x["step"] for x in lines] == list(range(steps)), "stage-1 metrics.jsonl steps")
+    check(all(np.isfinite(x[k]) for x in lines for k in ("total", "loss", "floss", "mouth_loss"))
+          and all(x["grads_finite"] == 1.0 for x in lines), "stage-1 losses not finite")
+    ck0 = torch.load(os.path.join(work1, "ckpt", "step_0000000.pt"), weights_only=True)
+    ck = torch.load(cli.latest_checkpoint(os.path.join(work1, "ckpt")), weights_only=True)
+    now = trainer.state_dict()
+    check(ck["step"] == steps == trainer.step, "checkpoint step")
+    check(all(torch.equal(ck["unet"][k].cpu(), v.cpu()) for k, v in now["unet"].items())
+          and all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ck["ema"], now["ema"])),
+          "checkpoint does not round-trip the trainer state")
+    changed = sum(not torch.equal(ck0["unet"][k], ck["unet"][k]) for k in ck["unet"])
+    ema_changed = sum(not torch.equal(a, b) for a, b in zip(ck0["ema"], ck["ema"]))
+    check(changed > 0 and ema_changed > 0, "parameters or EMA did not change")
+    walls = [x["wall"] for x in lines]
+    print(f"train path [{card}] stage 1: CLI, bs 4, 20 frames, 128^2, full width, bf16, "
+          f"uncached teacher + color jitter, {steps} steps resumed from a step-0 "
+          f"checkpoint in {secs:.2f} s; totals {[round(x['total'], 4) for x in lines]}; "
+          f"step wall times (s) {[round(w, 3) for w in walls]}; {changed}/{len(ck['unet'])} "
+          f"UNet tensors and {ema_changed} EMA tensors changed; checkpoint round-trips; "
+          f"K1 x {launches1[0]}, K2 x {launches1[1]}; peak memory {peak_gb:.2f} GiB", flush=True)
+
+    dirs = dict(f[2:].split("=", 1) for f in flags)
+    ds = HDTFVideoDataset(dirs["frames-dir"], dirs["hubert-dir"], dirs["pose-dir"],
+                          dirs["eye-dir"], dirs["length-dict"], lmk_dir=dirs["lmk-dir"],
+                          num_frames=20, seed=SEED)
+    batches = list(ds.batches(4, 3))
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    warm = float(np.median(times))
+    print(f"train path [{card}] stage 1 warm train_step on resident batches: "
+          f"{[round(1e3 * x, 1) for x in times]} ms, median {1e3 * warm:.1f} ms = "
+          f"{4 / warm:.2f} examples/s ({80 / warm:.1f} frames/s)", flush=True)
+    profile(lambda: trainer.train_step(batches[0]), card, "train profile")
+    del trainer
+    torch.cuda.empty_cache()
+
+    steps2 = 2
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer2 = cli.main([f"--config={config('dm_train_stage2.yaml')}", "--stage=2", *flags,
+                         f"--steps={steps2}", "--log-every=1", f"--workdir={work2}"])
+    secs2 = time.perf_counter() - t0
+    launches2 = _counts()
+    check(launches2 == (10 * steps2, 10 * steps2),
+          f"stage-2 launches (K1, K2) {launches2} != {10 * steps2} each")
+    lines2 = [json.loads(x) for x in open(os.path.join(work2, "metrics.jsonl"))]
+    check(trainer2.step == steps2 and all(np.isfinite(x["total"]) for x in lines2),
+          "stage-2 losses not finite")
+    print(f"train path [{card}] stage 2: CLI, bs 4, clips of {[x['frames'] for x in lines2]} "
+          f"frames (frame 0 split off), {steps2} steps in {secs2:.2f} s (model build "
+          f"included); totals {[round(x['total'], 4) for x in lines2]}; step wall times (s) "
+          f"{[round(x['wall'], 3) for x in lines2]}; K1 x {launches2[0]}, K2 x "
+          f"{launches2[1]}", flush=True)
+    del trainer2
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return tuple(a + b for a, b in zip(launches1, launches2))
 
 
 def main():
@@ -260,10 +617,20 @@ def main():
     k1 = kernel_k1(smi, rates)
     parity()
     launches = main_path(smi)
+    k2 = kernel_k2(smi, rates)
+    train_parity()
+    k1_train, k2_train = train_path(smi)
     kernels = [{"name": "K1 local_attention_packed", "route": "cuda",
                 "source": "dawn_tpu_torch/csrc/local_attention.cu",
                 "replaces": "dawn_tpu/ops/local_attention.py:299",
-                "launches": launches, **k1}]
+                "launches": launches, **k1,
+                "launches_by_path": {"sample": launches, "train": k1_train}},
+               {"name": "K2 local_attention_packed_bwd", "route": "cuda",
+                "source": "dawn_tpu_torch/csrc/local_attention_bwd.cu",
+                "replaces": "dawn_tpu/ops/local_attention.py:743",
+                "launches": k2_train, **k2,
+                "launches_by_path": {"sample": 0, "train": k2_train}}]
+    check(k2_train > 0, "K2 never launched on the training path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

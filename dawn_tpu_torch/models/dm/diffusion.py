@@ -1,14 +1,15 @@
-"""Gaussian diffusion over the flow latent video: the DDIM sampler.
+"""Gaussian diffusion over the flow latent video: training loss and DDIM.
 
-Port of the sampling half of ``dawn_tpu/models/dm/diffusion.py``: cosine
-schedule, epsilon prediction, dynamic thresholding (Imagen), eta-DDIM and
-classifier-free guidance. The DDIM loop is a Python loop. Tensors are
-channels-last: x is (B, T, h, w, 3) = (2 flow + 1 occlusion).
+Port of ``dawn_tpu/models/dm/diffusion.py``: cosine schedule, epsilon
+prediction, the per-element l2 training loss (``p_losses``), dynamic
+thresholding (Imagen), eta-DDIM and classifier-free guidance. The DDIM loop
+is a Python loop. Tensors are channels-last: x is (B, T, h, w, 3) = (2 flow
++ 1 occlusion).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,27 +25,73 @@ DYNAMIC_THRES_PERCENTILE = 0.9
 
 class GaussianDiffusion:
     """Stateless diffusion math; the denoiser is passed per call. Schedule
-    scalars are float32 on the host, as the JAX package holds them."""
+    scalars are float32 on the host, as the JAX package holds them; the
+    per-sample lookups use a copy on the timesteps' device, made once."""
 
     def __init__(self, timesteps: int = 1000, sampling_timesteps: int = 20,
-                 ddim_sampling_eta: float = 1.0):
+                 ddim_sampling_eta: float = 1.0, null_cond_prob: float = 0.1):
         self.timesteps = timesteps
         self.sampling_timesteps = sampling_timesteps
         self.ddim_sampling_eta = ddim_sampling_eta
+        self.null_cond_prob = null_cond_prob
         self.bufs = {k: torch.from_numpy(v) for k, v in diffusion_buffers(timesteps).items()}
+        self._device_bufs: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
-    def predict_start_from_noise(self, x_t: torch.Tensor, t: int,
+    def _extract(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """Per-sample schedule values bufs[name][t], shaped to broadcast over
+        ndim."""
+        bufs = self._device_bufs.get(t.device)
+        if bufs is None:
+            bufs = {k: v.to(t.device) for k, v in self.bufs.items()}
+            self._device_bufs[t.device] = bufs
+        return bufs[name][t].reshape(t.shape + (1,) * (ndim - 1))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_t for per-sample int timesteps t (B,)."""
+        nd = x_start.ndim
+        return (self._extract("sqrt_alphas_cumprod", t, nd) * x_start
+                + self._extract("sqrt_one_minus_alphas_cumprod", t, nd) * noise)
+
+    def predict_start_from_noise(self, x_t: torch.Tensor, t: torch.Tensor,
                                  noise: torch.Tensor) -> torch.Tensor:
-        return (self.bufs["sqrt_recip_alphas_cumprod"][t].item() * x_t
-                - self.bufs["sqrt_recipm1_alphas_cumprod"][t].item() * noise)
+        """x_0 from x_t and the predicted noise, per-sample int timesteps t (B,)."""
+        nd = x_t.ndim
+        return (self._extract("sqrt_recip_alphas_cumprod", t, nd) * x_t
+                - self._extract("sqrt_recipm1_alphas_cumprod", t, nd) * noise)
 
     def _threshold(self, x0: torch.Tensor) -> torch.Tensor:
         """Dynamic thresholding: per-sample quantile of |x0|, floored at 1,
-        then clip to [-s, s] and divide by s."""
+        then clip to [-s, s] and divide by s. The threshold s carries no
+        gradient: the JAX package finds it by a search over bit patterns,
+        which autodiff cannot see through."""
         b = x0.shape[0]
-        s = quantile_nonneg(x0.reshape(b, -1).abs(), DYNAMIC_THRES_PERCENTILE)
+        s = quantile_nonneg(x0.detach().reshape(b, -1).abs(), DYNAMIC_THRES_PERCENTILE)
         s = s.clamp_min(1.0).reshape((b,) + (1,) * (x0.ndim - 1))
         return torch.maximum(torch.minimum(x0, s), -s) / s
+
+    def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor, t: torch.Tensor,
+                 fea: torch.Tensor, bbox_mask: torch.Tensor, cond: Optional[torch.Tensor],
+                 noise: Optional[torch.Tensor] = None, drop: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Per-element l2 eps loss. Returns (loss, pred_x0, cond_drop_mask).
+
+        x_start: (B, T, h, w, 3); t: (B,) int timesteps; fea: (B, T, h, w,
+        256); bbox_mask: (B, T, h, w, 16). ``noise`` and the (B, T) bool
+        ``drop`` mask (True: the frame gets the null condition) are drawn
+        from ``generator`` unless given."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        x_noisy = self.q_sample(x_start, t, noise)
+        inp = torch.cat([x_noisy, fea, bbox_mask], dim=-1)
+        if drop is None:
+            drop = torch.rand(x_start.shape[:2], generator=generator,
+                              device=x_start.device) < self.null_cond_prob
+        pred_noise = denoise_fn(inp, t, cond, drop)
+        loss = (noise - pred_noise).square()
+        pred_x0 = self._threshold(self.predict_start_from_noise(x_noisy, t, pred_noise))
+        return loss, pred_x0, drop
 
     def _cfg_eps(self, denoise_fn: DenoiseFn, inp, tvec, cond, cond_scale: float):
         """forward_with_cond_scale: one call at cond_scale 1, two otherwise."""
@@ -76,7 +123,7 @@ class GaussianDiffusion:
             alpha, alpha_next = acp[time], acp[time_next]
             tvec = torch.full((shape[0],), time, dtype=torch.int64, device=device)
             pred_noise = self._cfg_eps(denoise_fn, img, tvec, cond, cond_scale)
-            x_start = self._threshold(self.predict_start_from_noise(img, time, pred_noise))
+            x_start = self._threshold(self.predict_start_from_noise(img, tvec, pred_noise))
             sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
                                      / (1 - alpha))
             c = torch.sqrt(torch.clamp((1 - alpha_next) - sigma ** 2, min=0.0))

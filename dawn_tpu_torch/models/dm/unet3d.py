@@ -15,7 +15,9 @@ DAWN-pytorch ``state_dict`` (``downs.{i}.3.fn.fn.fn.to_qkv.weight``,
 
 In 'local' attention mode every temporal attention goes through K1
 (:func:`dawn_tpu_torch.ops.local_attention.local_attention_packed`): the CUDA
-kernel on the card, its plain version on the CPU.
+kernel on the card, its plain version on the CPU. With grad on it is the
+autograd Function ``LocalAttentionPacked``, whose backward is K2, so the
+training step runs one K1 and one K2 per temporal attention.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
-"""Flow warping of the LFG decoder, channels-last.
+"""Flow warping and region geometry of the LFG nets, channels-last.
 
-Port of ``dawn_tpu/models/lfg/warp.py:21-97``: flows are normalized [-1, 1]
-xy grids; a flow whose size differs from the warped tensor's is first resized
-bilinearly (align_corners=False), and so is the occlusion map.
+Port of ``dawn_tpu/models/lfg/warp.py``: flows are normalized [-1, 1] xy
+grids; a flow whose size differs from the warped tensor's is first resized
+bilinearly (align_corners=False), and so is the occlusion map. Also the
+anti-aliased downsample of the predictors' inputs and the region-to-gaussian
+heatmap of the flow predictor.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from dawn_tpu_torch.ops.convs import _nchw, _nhwc
 from dawn_tpu_torch.ops.resample import (grid_sample, grid_sample_shared,
                                          interpolate_bilinear)
 
@@ -63,3 +67,34 @@ def make_coordinate_grid(h: int, w: int, dtype=torch.float32, device=None) -> to
     grid = np.stack([np.broadcast_to(x[None, :], (h, w)),
                      np.broadcast_to(y[:, None], (h, w))], axis=-1)
     return torch.as_tensor(grid, dtype=dtype, device=device)
+
+
+def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Gaussian blur, then keep every (1/scale)-th pixel (the reference's
+    AntiAliasInterpolation2d); x (N, H, W, C)."""
+    if scale == 1.0:
+        return x
+    sigma = (1 / scale - 1) / 2
+    ks = 2 * round(sigma * 4) + 1
+    ka = ks // 2
+    kb = ka - 1 if ks % 2 == 0 else ka
+    grid = np.arange(ks, dtype=np.float64)
+    g1 = np.exp(-((grid - (ks - 1) / 2) ** 2) / (2 * sigma ** 2))
+    kernel = np.outer(g1, g1)
+    kernel = torch.as_tensor((kernel / kernel.sum()).astype(np.float32), dtype=x.dtype,
+                             device=x.device)
+    c = x.shape[-1]
+    out = F.conv2d(F.pad(_nchw(x), (ka, kb, ka, kb)), kernel.expand(c, 1, ks, ks),
+                   groups=c)
+    step = int(1 / scale)
+    return _nhwc(out)[:, ::step, ::step, :]
+
+
+def region2gaussian(center: torch.Tensor, covar: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Gaussian heatmaps exp(-d^T covar^-1 d / 2) of region centres (..., 2)
+    with covariances (..., 2, 2) on the (h, w) grid -> (..., h, w)."""
+    grid = make_coordinate_grid(h, w, center.dtype, center.device)
+    d = grid - center[..., None, None, :]                          # (..., h, w, 2)
+    covar_inv = torch.linalg.inv(covar)[..., None, None, :, :]     # (..., 1, 1, 2, 2)
+    under = torch.einsum("...i,...ij,...j->...", d, covar_inv, d)
+    return torch.exp(-0.5 * under)

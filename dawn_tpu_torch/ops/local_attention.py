@@ -1,4 +1,4 @@
-"""Windowed (local) temporal attention: plain PyTorch forms and kernel K1.
+"""Windowed (local) temporal attention: plain PyTorch forms, kernels K1 and K2.
 
 Semantics (those of ``dawn_tpu/ops/local_attention.py``): the weight of query
 i over key j is the softmax of q_i . k_j + b[j - i] for |j - i| <= window and
@@ -14,12 +14,17 @@ Softmax and accumulation run in f32; the output has the input dtype.
 - :func:`local_attention_packed`: K1. On a CUDA tensor it launches the
   hand-written kernel in ``csrc/local_attention.cu``; on a CPU tensor it runs
   :func:`local_attention_packed_plain`. Its ``launches`` attribute counts
-  kernel launches.
+  kernel launches. Under autograd it goes through
+  :class:`LocalAttentionPacked`, whose backward is K2.
+- :func:`local_attention_packed_bwd`: K2, the backward, in
+  ``csrc/local_attention_bwd.cu``; :func:`local_attention_packed_bwd_plain`
+  is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -115,45 +120,77 @@ def windowed_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn @ v
 
 
+def local_attention_packed_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     g: torch.Tensor, bias_vec: Optional[torch.Tensor],
+                                     window: int, heads: int):
+    """K2's function in plain PyTorch: the gradients of
+    :func:`local_attention_packed_plain` with respect to q, k, v and the f32
+    bias vector, given the output gradient ``g``. Whole-sequence (T, T) f32
+    scores per head with the band folded into the bias, as the TPU kernel
+    computes them. Returns (dq, dk, dv) in the input dtype and dvec
+    ((H, 2w+1) f32, or None without a bias)."""
+    n, t, hd = q.shape
+    d = hd // heads
+
+    def split(x):
+        return x.float().reshape(n, t, heads, d).transpose(1, 2)   # (n, h, t, d)
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(n, t, hd).to(q.dtype)
+
+    qs, ks, vs, gs = map(split, (q, k, v, g))
+    s = qs @ ks.transpose(-1, -2) + windowed_bias(t, window, bias_vec, q.device)[None]
+    p = torch.softmax(s, dim=-1)
+    dp = gs @ vs.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq, dk, dv = ds @ ks, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ gs
+    dvec = None
+    if bias_vec is not None:
+        # entry (i, j) of dS belongs to the bias offset j - i
+        rel = np.arange(t)[None, :] - np.arange(t)[:, None]
+        onehot = torch.from_numpy((rel[None] == np.arange(-window, window + 1)[:, None, None])
+                                  .astype(np.float32)).to(q.device)     # (2w+1, t, t)
+        dvec = torch.einsum("hij,rij->hr", ds.sum(dim=0), onehot)
+    return merge(dq), merge(dk), merge(dv), dvec
+
+
 _DTYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _k1_library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _library(name: str, symbol: str, argtypes: tuple) -> ctypes.CDLL:
+    """The built library ``csrc/<name>.cu`` with ``symbol``'s C signature set
+    (once per library)."""
     from dawn_tpu_torch import build
-    lib = build.load("local_attention")
-    fn = lib.dawn_local_attn_packed_fwd
+    lib = build.load(name)
+    fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = argtypes
     return lib
 
 
-def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           bias_vec: Optional[torch.Tensor], window: int,
-                           heads: int) -> torch.Tensor:
-    """K1: windowed attention on the packed (N, T, H*D) layout.
-
-    A CUDA tensor launches the CUDA kernel (T <= 256, D = 32, f32 or bf16,
-    contiguous inputs) or raises; a CPU tensor takes the plain version."""
-    if q.device.type == "cpu":
-        return local_attention_packed_plain(q, k, v, bias_vec, window, heads)
+def _check_kernel_inputs(what: str, q: torch.Tensor, others, bias_vec, window: int,
+                         heads: int) -> None:
+    """Raise on what the CUDA kernels do not take: T > 256, dim_head != 32,
+    another dtype, mismatched or non-contiguous tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     n, t, hd = q.shape
     if t > PACKED_MAX_T:
         raise NotImplementedError(
-            f"T={t} > {PACKED_MAX_T} needs the tiled kernel K3 "
+            f"T={t} > {PACKED_MAX_T} needs the tiled kernels K3/K4 "
             "(dawn_tpu/ops/local_attention.py::local_attention_pallas), "
             "not yet ported")
     if q.dtype not in _DTYPE_FLAG:
-        raise TypeError(f"K1 takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{what} takes float32 or bfloat16, got {q.dtype}")
     if hd % heads or hd // heads != 32:
-        raise ValueError(f"K1 is built for dim_head 32, got {hd}/{heads}")
-    for name, x in (("k", k), ("v", v)):
+        raise ValueError(f"{what} is built for dim_head 32, got {hd}/{heads}")
+    for name, x in others:
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} {x.device} does "
                              f"not match q {tuple(q.shape)} {q.dtype} {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("K1 needs contiguous q, k, v")
+    if not (q.is_contiguous() and all(x.is_contiguous() for _, x in others)):
+        raise ValueError(f"{what} needs contiguous inputs")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if bias_vec is not None:
@@ -162,10 +199,20 @@ def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"bias_vec must be contiguous f32 ({heads}, "
                              f"{2 * window + 1}) on {q.device}, got "
                              f"{tuple(bias_vec.shape)} {bias_vec.dtype} {bias_vec.device}")
+
+
+def _forward(q, k, v, bias_vec, window: int, heads: int) -> torch.Tensor:
+    """K1 on a CUDA tensor (counted in ``local_attention_packed.launches``),
+    the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return local_attention_packed_plain(q, k, v, bias_vec, window, heads)
+    _check_kernel_inputs("K1", q, (("k", k), ("v", v)), bias_vec, window, heads)
+    n, t, hd = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _k1_library()
+    lib = _library("local_attention", "dawn_local_attn_packed_fwd",
+                   (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dawn_local_attn_packed_fwd(
@@ -176,6 +223,80 @@ def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     local_attention_packed.launches += 1
     return out
+
+
+def local_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               g: torch.Tensor, bias_vec: Optional[torch.Tensor],
+                               window: int, heads: int):
+    """K2: the backward of K1 on the packed (N, T, H*D) layout; returns
+    (dq, dk, dv, dvec) as :func:`local_attention_packed_bwd_plain` does.
+
+    A CUDA tensor launches the CUDA kernel in ``csrc/local_attention_bwd.cu``
+    (T <= 256, D = 32, f32 or bf16, contiguous inputs) or raises; a CPU
+    tensor takes the plain version. The kernel writes one (2w+1) bias
+    partial per (sequence, head), summed here over sequences in a fixed
+    order. Its ``launches`` attribute counts kernel launches."""
+    if q.device.type == "cpu":
+        return local_attention_packed_bwd_plain(q, k, v, g, bias_vec, window, heads)
+    _check_kernel_inputs("K2", q, (("k", k), ("v", v), ("g", g)), bias_vec, window, heads)
+    n, t, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    partial = (torch.empty((n, heads, 2 * window + 1), dtype=torch.float32, device=q.device)
+               if bias_vec is not None else None)
+    if q.numel() == 0:
+        return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+    lib = _library("local_attention_bwd", "dawn_local_attn_packed_bwd",
+                   (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dawn_local_attn_packed_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            bias_vec.data_ptr() if bias_vec is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            n, t, heads, hd // heads, window, _DTYPE_FLAG[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    local_attention_packed_bwd.launches += 1
+    return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+
+
+local_attention_packed_bwd.launches = 0
+
+
+class LocalAttentionPacked(torch.autograd.Function):
+    """Differentiable windowed attention: forward K1, backward K2 (their
+    plain versions on CPU tensors). The counterpart of the JAX package's
+    custom VJP ``local_attention_packed_tpu``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_vec, window: int, heads: int):
+        ctx.save_for_backward(q, k, v, bias_vec)
+        ctx.window, ctx.heads = window, heads
+        return _forward(q, k, v, bias_vec, window, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias_vec = ctx.saved_tensors
+        dq, dk, dv, dvec = local_attention_packed_bwd(q, k, v, g.contiguous(), bias_vec,
+                                                      ctx.window, ctx.heads)
+        return dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None), None, None
+
+
+def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias_vec: Optional[torch.Tensor], window: int,
+                           heads: int) -> torch.Tensor:
+    """K1: windowed attention on the packed (N, T, H*D) layout.
+
+    A CUDA tensor launches the CUDA kernel (T <= 256, D = 32, f32 or bf16,
+    contiguous inputs) or raises; a CPU tensor takes the plain version. When
+    grad mode is on and an input requires grad, the call goes through
+    :class:`LocalAttentionPacked`, whose backward is K2. The ``launches``
+    attribute counts K1's kernel launches."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, bias_vec)):
+        return LocalAttentionPacked.apply(q, k, v, bias_vec, window, heads)
+    return _forward(q, k, v, bias_vec, window, heads)
 
 
 local_attention_packed.launches = 0

@@ -1,0 +1,177 @@
+"""DM diffusion training entry (stage 1 / stage 2) of the port, on one card.
+
+    python -m dawn_tpu_torch.scripts.train_dm --config configs/dm_train_stage1.yaml \\
+        --frames-dir ... --hubert-dir ... --pose-dir ... --eye-dir ... \\
+        --length-dict ... [--lmk-dir ...] [--lfg-ckpt LFG_128.pth] [--stage 2]
+
+The flags are those of ``scripts/train_dm.py``: the yaml config (batch size,
+frames, lr, schedule length, loss weights, window; optional ``unet:`` and
+``lfg:`` topology overrides and ``compute_dtype: bfloat16``), stage-2 clip
+lengths drawn per step and snapped to the config's length buckets,
+``<workdir>/metrics.jsonl`` logging every ``--log-every`` steps, and
+checkpoints ``<workdir>/ckpt/step_<step>.pt`` (UNet, optimizer, schedule,
+EMA, step; ``torch.save``) every ``--ckpt-every`` steps and at the end,
+resumed from the newest with ``--restore``. ``--device cpu`` runs on the CPU;
+the card is the default. ``--teacher-cache``, ``--prefetch``,
+``--tensorboard`` and ``--sample-every`` are not ported yet and raise.
+"""
+
+import argparse
+import glob
+import json
+import os
+import time
+from typing import List, Optional
+
+_NOT_PORTED = {
+    "teacher_cache": "--teacher-cache (TeacherCache, ROADMAP queue 1 item 12)",
+    "prefetch": "--prefetch (the C++ chunk reader and batches_prefetched, "
+                "ROADMAP queue 1 item 12)",
+    "tensorboard": "--tensorboard (ROADMAP queue 1 item 12)",
+    "sample_every": "--sample-every (DMTrainer.snapshot and its LFG decode, "
+                    "ROADMAP queue 1 item 12)",
+}
+_TIME_KEYS = ("video", "hubert", "pose", "blink", "mouth_lmk")
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="configs/dm_train_stage1.yaml")
+    ap.add_argument("--frames-dir", required=True)
+    ap.add_argument("--hubert-dir", required=True)
+    ap.add_argument("--pose-dir", required=True)
+    ap.add_argument("--eye-dir", required=True)
+    ap.add_argument("--lmk-dir", default=None)
+    ap.add_argument("--length-dict", required=True)
+    ap.add_argument("--lfg-ckpt", default=None,
+                    help="reference LFG_*.pth for the frozen teacher (random weights "
+                         "from the config's seed otherwise)")
+    ap.add_argument("--stage", type=int, default=1)
+    ap.add_argument("--workdir", default="runs/dm")
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=500)
+    ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the card)")
+    ap.add_argument("--sample-every", type=int, default=0, help="not ported yet")
+    ap.add_argument("--tensorboard", action="store_true", help="not ported yet")
+    ap.add_argument("--teacher-cache", default=None, metavar="DIR", help="not ported yet")
+    ap.add_argument("--teacher-cache-stride", type=int, default=None, help="not ported yet")
+    ap.add_argument("--teacher-cache-f16", action="store_true", help="not ported yet")
+    ap.add_argument("--prefetch", action="store_true", help="not ported yet")
+    args = ap.parse_args(argv)
+    for name, what in _NOT_PORTED.items():
+        if getattr(args, name):
+            raise NotImplementedError(f"{what} is not ported to dawn_tpu_torch yet")
+    if args.teacher_cache_stride is not None or args.teacher_cache_f16:
+        raise NotImplementedError(f"{_NOT_PORTED['teacher_cache']} is not ported to "
+                                  "dawn_tpu_torch yet")
+    return args
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    paths = sorted(glob.glob(os.path.join(ckpt_dir, "step_*.pt")))
+    return paths[-1] if paths else None
+
+
+def main(argv: Optional[List[str]] = None):
+    """Run the training loop; returns the trainer."""
+    args = parse_args(argv)
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.train.data import HDTFVideoDataset
+    from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+
+    with open(args.config) as f:
+        cfg_yaml = yaml.safe_load(f)
+    seed = cfg_yaml.get("random_seed", 1234)
+    torch.manual_seed(seed)
+    os.makedirs(args.workdir, exist_ok=True)
+
+    cfg = DMTrainConfig(
+        img_size=cfg_yaml["img_size"], win_width=cfg_yaml.get("win_width", 20),
+        stage=args.stage, lr=cfg_yaml["lr"], total_steps=cfg_yaml["total_steps"],
+        grad_clip=cfg_yaml["grad_clip"], floss_weight=cfg_yaml["floss_weight"],
+        mouth_weight=cfg_yaml["mouth_weight"], null_cond_prob=cfg_yaml["null_cond_prob"],
+        fea_channels=cfg_yaml.get("fea_channels", 256),
+        remat=cfg_yaml.get("remat", "none"),
+        compute_dtype=getattr(torch, cfg_yaml.get("compute_dtype", "float32")))
+    unet_kw = dict(cfg_yaml.get("unet") or {})
+    if "dim_mults" in unet_kw:
+        unet_kw["dim_mults"] = tuple(unet_kw["dim_mults"])
+    lf = cfg_yaml.get("lfg") or {}
+    flow_ae = FlowAE(generator_kw=lf.get("generator"), region_kw=lf.get("region"),
+                     bg_kw=lf.get("bg"), flow_kw=lf.get("flow"))
+    if args.lfg_ckpt:
+        flow_ae.load_reference_checkpoint(args.lfg_ckpt)
+        print(f"loaded frozen LFG from {args.lfg_ckpt}")
+    trainer = DMTrainer(cfg, flow_ae=flow_ae, unet_kw=unet_kw or None, device=args.device,
+                        seed=seed)
+
+    # stage 2: a random clip length of 30-40 diffused frames per step,
+    # snapped to the config's length buckets, +1 for the split-off frame 0
+    if args.stage == 2:
+        s2_min = cfg_yaml.get("num_frames_min", 30)
+        s2_max = cfg_yaml.get("num_frames_max", 40)
+        s2_buckets = sorted(set(cfg_yaml.get("frame_buckets",
+                                             [s2_min, (s2_min + s2_max) // 2, s2_max])))
+        num_frames = s2_max + 1
+    else:
+        num_frames = cfg_yaml.get("num_frames", 20)
+    dataset = HDTFVideoDataset(args.frames_dir, args.hubert_dir, args.pose_dir, args.eye_dir,
+                               args.length_dict, lmk_dir=args.lmk_dir, num_frames=num_frames)
+    print(f"dataset: {len(dataset)} videos, {num_frames} frames/clip"
+          + (f", stage-2 buckets {s2_buckets}" if args.stage == 2 else "")
+          + f"; device {trainer.device}")
+
+    start = 0
+    ckpt_dir = os.path.join(args.workdir, "ckpt")
+    if args.restore:
+        path = latest_checkpoint(ckpt_dir)
+        if path is not None:
+            trainer.load_state_dict(torch.load(path, map_location=trainer.device,
+                                               weights_only=True))
+            start = trainer.step
+            print(f"restored from step {start}")
+
+    def save(step):
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"step_{step:07d}.pt")
+        torch.save(trainer.state_dict(), path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    total = cfg_yaml["total_steps"] if args.steps is None else args.steps
+    bs = cfg_yaml["batch_size"]
+    rng_len = np.random.RandomState(seed)
+    t0 = time.time()
+    with open(os.path.join(args.workdir, "metrics.jsonl"), "a") as metrics_log:
+        for step, batch in enumerate(dataset.batches(bs, total - start), start):
+            if args.stage == 2:
+                want = rng_len.randint(s2_min, s2_max + 1)
+                length = min(s2_buckets, key=lambda q: abs(q - want))
+                batch = {k: (v[:, : length + 1] if k in _TIME_KEYS else v)
+                         for k, v in batch.items()}
+            load_t = time.time() - t0
+            if load_t > 1.0:
+                print(f"unnormal load {load_t:.2f}s at step {step}")
+            metrics = trainer.train_step(batch)
+            if step % args.log_every == 0:
+                metrics.update(step=step, wall=time.time() - t0,
+                               frames=int(batch["video"].shape[1]))
+                metrics_log.write(json.dumps(metrics) + "\n")
+                metrics_log.flush()
+                print(f"step {step}: " + " ".join(f"{k} {metrics[k]:.4f}" for k in
+                                                  ("total", "loss", "floss", "mouth_loss")))
+            if step > start and step % args.ckpt_every == 0:
+                save(step)
+            t0 = time.time()
+    save(total)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,312 @@
+"""DM (flow diffusion) training, stages 1 and 2, on one card.
+
+Port of ``dawn_tpu/train/train_dm.py:39-326``. The loss is the reference's:
+the eps loss + 0.15 * floss (MSE of the thresholded x0 prediction) + 0.15 *
+the eps loss inside the mouth-landmark box. Stage 1 diffuses the whole clip
+with frame 0 as the reference image; stage 2 splits frame 0 off as the
+reference and diffuses frames 1: (the condition rows keep their deltas
+against frame 0, the mouth landmarks keep the reference's off-by-one slice).
+The frozen LFG teacher gives the flow/occlusion targets and the reference
+feature; with cached teacher tensors in the batch it is skipped.
+
+The update is optax's ``chain(clip_by_global_norm(2.0), adam(cosine_decay(
+lr, total_steps), b1=0.9, b2=0.99))``, written out: clip by ``max/norm``
+only when ``norm >= max``, Adam with bias correction and eps 1e-8 outside the
+square root, the learning rate of the step count before its increment. A
+step whose gradient has a non-finite element changes neither the parameters
+nor the optimizer or schedule state, while the step count advances and the
+EMA still moves, as in the JAX package.
+
+The UNet runs in attn_mode 'local' by default, so each of its temporal
+attentions goes through K1 forward and K2 backward
+(:class:`dawn_tpu_torch.ops.local_attention.LocalAttentionPacked`); the JAX
+trainer's default 'full' computes the same function. Parameters stay f32;
+``compute_dtype`` is the UNet's compute dtype. The trainer lives on the card
+unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dawn_tpu_torch import resolve_device
+from dawn_tpu_torch.models.dm.diffusion import GaussianDiffusion
+from dawn_tpu_torch.models.dm.flow_diffusion import FaceLocEncoder, generate_bbox_mask
+from dawn_tpu_torch.models.dm.unet3d import Unet3D
+from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+from dawn_tpu_torch.train.augment import color_jitter_video
+
+
+def generate_mouth_mask(mouth_lmk: torch.Tensor, latent_size: int,
+                        img_size: int) -> torch.Tensor:
+    """(B, T, ls, ls, 1) f32 mask of each frame's mouth-landmark box at latent
+    resolution; mouth_lmk (B, T, K, 2) are xy pixel coordinates."""
+    scale = latent_size / img_size
+    x0 = torch.floor(mouth_lmk[..., 0].amin(dim=-1) * scale).to(torch.int32)
+    x1 = torch.ceil(mouth_lmk[..., 0].amax(dim=-1) * scale).to(torch.int32)
+    y0 = torch.floor(mouth_lmk[..., 1].amin(dim=-1) * scale).to(torch.int32)
+    y1 = torch.ceil(mouth_lmk[..., 1].amax(dim=-1) * scale).to(torch.int32)
+    idx = torch.arange(latent_size, device=mouth_lmk.device)
+    rows, cols = idx[None, None, :, None], idx[None, None, None, :]
+    mask = ((rows >= y0[..., None, None]) & (rows <= y1[..., None, None])
+            & (cols >= x0[..., None, None]) & (cols <= x1[..., None, None]))
+    return mask.float()[..., None]
+
+
+@dataclasses.dataclass
+class DMTrainConfig:
+    img_size: int = 128
+    fea_channels: int = 256       # LFG bottleneck width
+    pose_dim: int = 6
+    win_width: int = 40
+    stage: int = 1                # 1: fixed clips, frame 0 diffused too; 2: frame 0 split off
+    lr: float = 2e-4
+    total_steps: int = 250_000
+    grad_clip: float = 2.0
+    floss_weight: float = 0.15
+    mouth_weight: float = 0.15
+    null_cond_prob: float = 0.1
+    use_fft_floss: bool = False   # the temporal-FFT floss (hf_loss_2): not ported
+    color_jitter: bool = True
+    remat: str = "none"           # only 'none' is ported
+    compute_dtype: torch.dtype = torch.float32
+    ema_decay: Optional[float] = 0.9999
+
+    @property
+    def latent_size(self) -> int:
+        return self.img_size // 4
+
+
+def cosine_decay(count: int, total_steps: int) -> float:
+    """optax.cosine_decay_schedule's factor at ``count`` (alpha 0)."""
+    return 0.5 * (1.0 + math.cos(math.pi * min(count, total_steps) / total_steps))
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax.adam's update: mu and nu moving averages, bias correction by
+    the incremented count, mu_hat / (sqrt(nu_hat) + eps), scaled by -lr.
+    The learning rate is the group's ``lr`` (set by the schedule)."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.99,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p),
+                                         count=0)
+            b1, b2, eps = group["b1"], group["b2"], group["eps"]
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+            count = self.state[params[0]]["count"] + 1
+            for p in params:
+                self.state[p]["count"] = count
+            mu_hat = torch._foreach_div(mus, 1 - b1 ** count)
+            den = torch._foreach_sqrt(torch._foreach_div(nus, 1 - b2 ** count))
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(mu_hat, den)
+            torch._foreach_add_(params, mu_hat, alpha=-group["lr"])
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> Tuple[float, bool]:
+    """optax.clip_by_global_norm in place: when the global norm is at least
+    ``max_norm`` every gradient becomes (g / norm) * max_norm. Returns the
+    norm and whether every element of every gradient is finite (then the
+    gradients are left as they are)."""
+    finite = bool(torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all())
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if finite and norm >= max_norm:
+        torch._foreach_div_(grads, norm)
+        torch._foreach_mul_(grads, max_norm)
+    return float(norm), finite
+
+
+class DMTrainer:
+    """The UNet under training, the frozen teacher and mask encoder, the
+    optimizer, its schedule, the EMA of the parameters and the step count.
+    Weights are random (torch's default init, from the caller's seed) until
+    loaded."""
+
+    TEACHER_KEYS = ("real_vid_grid", "real_vid_conf", "ref_img_fea")
+
+    def __init__(self, config: DMTrainConfig = DMTrainConfig(),
+                 flow_ae: Optional[FlowAE] = None,
+                 unet_kw: Optional[Dict[str, Any]] = None, device=None, seed: int = 0):
+        if config.use_fft_floss:
+            raise NotImplementedError(
+                "use_fft_floss (hf_loss_2, dawn_tpu/ops/fourier.py) is not ported yet "
+                "(ROADMAP queue 1 item 15)")
+        if config.remat != "none":
+            raise NotImplementedError(f"remat={config.remat!r} is not ported yet (ROADMAP)")
+        self.config = config
+        self.device = resolve_device(device)
+        self.in_channels = 3 + config.fea_channels + 16
+        kw: Dict[str, Any] = dict(dim=64, channels=self.in_channels,
+                                  cond_pose=config.pose_dim, win_width=config.win_width,
+                                  attn_mode="local", dtype=config.compute_dtype)
+        kw.update(unet_kw or {})
+        self.unet = Unet3D(**kw).to(self.device).train()
+        self.diffusion = GaussianDiffusion(timesteps=1000, sampling_timesteps=20,
+                                           null_cond_prob=config.null_cond_prob)
+        self.flow_ae = (flow_ae or FlowAE()).to(self.device).eval().requires_grad_(False)
+        self.face_loc = FaceLocEncoder().to(self.device).eval().requires_grad_(False)
+        self.optimizer = OptaxAdam(self.unet.parameters(), lr=config.lr)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda count: cosine_decay(count, config.total_steps))
+        self.ema = ([p.detach().clone() for p in self.unet.parameters()]
+                    if config.ema_decay is not None else None)
+        self.step = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    # ----------------------------------------------------------------- inputs
+    def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                   device=self.device) for k, v in batch.items()}
+
+    def prepare_inputs(self, batch, jitter: Optional[Dict[str, torch.Tensor]] = None):
+        """(jittered) video, reference image, condition rows and mouth
+        landmarks, with the stage's frame-0 handling. ``jitter`` holds the
+        color-jitter factors; they are drawn when jitter is on and none are
+        given."""
+        video = batch["video"].float() / 255.0
+        if self.config.color_jitter:
+            video = color_jitter_video(video, jitter, self.generator)
+        ref_img = video[:, 0]
+        cond, mouth_lmk = self.prepare_cond(batch)
+        if self.config.stage == 2:
+            video = video[:, 1:]
+        return video, ref_img, cond, mouth_lmk
+
+    def prepare_cond(self, batch):
+        """Condition rows (audio ++ pose delta ++ blink delta against frame
+        0) and mouth landmarks, with the stage's frame-0 slice."""
+        pose = batch["pose"][..., : self.config.pose_dim].float()
+        blink = batch["blink"].float()
+        cond = torch.cat([batch["hubert"].float(), pose - pose[:, :1], blink - blink[:, :1]],
+                         dim=-1)
+        mouth_lmk = batch.get("mouth_lmk")
+        if self.config.stage == 2:
+            cond = cond[:, 1:]
+            if mouth_lmk is not None:
+                mouth_lmk = mouth_lmk[:, :-1]
+        return cond, mouth_lmk
+
+    @torch.no_grad()
+    def teacher_precompute(self, video_255) -> Dict[str, torch.Tensor]:
+        """The frozen teacher's three tensors for the cached-teacher mode;
+        stage 2 splits frame 0 off as the reference first."""
+        video = torch.as_tensor(video_255, device=self.device).float() / 255.0
+        ref_img = video[:, 0]
+        if self.config.stage == 2:
+            video = video[:, 1:]
+        return self.flow_ae.teacher_outputs(ref_img, video)
+
+    # ------------------------------------------------------------------- loss
+    def loss_fn(self, batch: Dict[str, torch.Tensor], draws: Optional[Dict[str, Any]] = None):
+        """Total loss and the metrics {loss, floss, mouth_loss, total}.
+
+        batch: video (B, T, H, W, 3) in [0, 255], hubert (B, T, 1024), pose
+        (B, T, P), blink (B, T, 2), bbox (B, 6), optional mouth_lmk (B, T, K,
+        2); or the TEACHER_KEYS instead of video (cached teacher: no teacher
+        pass, no color jitter). ``draws`` may give the random draws of the
+        step: 't' (B,), 'noise' (the x_start shape), 'drop' (B, T) bool and
+        'jitter' (the color-jitter factors); what it lacks is drawn from the
+        trainer's generator."""
+        cfg = self.config
+        draws = draws or {}
+        if "real_vid_grid" in batch:
+            teacher = {k: batch[k].float() for k in self.TEACHER_KEYS}
+            cond, mouth_lmk = self.prepare_cond(batch)
+        else:
+            video, ref_img, cond, mouth_lmk = self.prepare_inputs(batch, draws.get("jitter"))
+            with torch.no_grad():
+                teacher = self.flow_ae.teacher_outputs(ref_img, video)
+        b, t = teacher["real_vid_grid"].shape[:2]
+        x_start = torch.cat([teacher["real_vid_grid"], teacher["real_vid_conf"] * 2.0 - 1.0],
+                            dim=-1)
+        with torch.no_grad():
+            mask_emb = self.face_loc(generate_bbox_mask(batch["bbox"], cfg.img_size))
+        fea = teacher["ref_img_fea"]
+        fea_t = fea[:, None].expand((b, t) + fea.shape[1:])
+        mask_t = mask_emb[:, None].expand((b, t) + mask_emb.shape[1:])
+
+        tvec = draws.get("t")
+        if tvec is None:
+            tvec = torch.randint(0, self.diffusion.timesteps, (b,), generator=self.generator,
+                                 device=self.device)
+        tvec = torch.as_tensor(tvec, device=self.device).long()
+        noise, drop = (None if draws.get(k) is None
+                       else torch.as_tensor(draws[k], device=self.device) for k in ("noise", "drop"))
+        loss_elem, pred_x0, _ = self.diffusion.p_losses(
+            self.unet, x_start, tvec, fea_t, mask_t, cond, noise=noise, drop=drop,
+            generator=self.generator)
+
+        eps_loss = loss_elem.mean()
+        floss = (pred_x0 - x_start).square().mean()
+        if mouth_lmk is not None:
+            mmask = generate_mouth_mask(mouth_lmk.float(), cfg.latent_size, cfg.img_size)
+            mouth_loss = (loss_elem * mmask).sum() / mmask.sum().clamp_min(1.0)
+        else:
+            mouth_loss = torch.zeros((), device=self.device)
+        total = eps_loss + cfg.floss_weight * floss + cfg.mouth_weight * mouth_loss
+        metrics = {"loss": eps_loss, "floss": floss, "mouth_loss": mouth_loss, "total": total}
+        return total, metrics
+
+    # ------------------------------------------------------------------- step
+    def train_step(self, batch: Dict[str, Any],
+                   draws: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+        """One optimizer step; returns the metrics as floats, with
+        'grads_finite' 1.0 or 0.0 and 'grad_norm' (before clipping)."""
+        batch = self._batch(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        total, metrics = self.loss_fn(batch, draws)
+        total.backward()
+        grads = [p.grad for p in self.unet.parameters() if p.grad is not None]
+        norm, finite = clip_by_global_norm_(grads, self.config.grad_clip)
+        if finite:
+            self.optimizer.step()
+            self.scheduler.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
+        if self.ema is not None:
+            d = self.config.ema_decay
+            with torch.no_grad():
+                params = [p.detach() for p in self.unet.parameters()]
+                torch._foreach_mul_(self.ema, d)
+                torch._foreach_add_(self.ema, params, alpha=1 - d)
+        out = {k: v.item() for k, v in metrics.items()}
+        out.update(grads_finite=float(finite), grad_norm=norm)
+        return out
+
+    # ------------------------------------------------------------- checkpoint
+    def state_dict(self) -> Dict[str, Any]:
+        """UNet, optimizer, schedule, EMA and step: what a run resumes from
+        (the frozen teacher and mask encoder come from their own weights)."""
+        return {"unet": self.unet.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "ema": self.ema, "step": self.step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.unet.load_state_dict(state["unet"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        if self.ema is not None:
+            with torch.no_grad():
+                for e, s in zip(self.ema, state["ema"]):
+                    e.copy_(s)
+        self.step = int(state["step"])

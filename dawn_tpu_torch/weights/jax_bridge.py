@@ -3,6 +3,11 @@
 ``load_flow_diffusion_variables(model, variables)`` takes the variables as
 nested dicts of numpy arrays, ``{'unet': {'params'}, 'generator': {'params',
 'batch_stats'}, 'face_loc': {'params'}}``, and fills a port ``FlowDiffusion``.
+``load_flow_ae_variables`` fills a port ``FlowAE`` from the JAX FlowAE
+variables (generator, region, background and pixelwise-flow predictors), and
+``load_dm_trainer_variables`` a port ``DMTrainer`` from the UNet params, the
+frozen teacher and mask-encoder variables and, optionally, the EMA params of
+a JAX trainer state.
 It is the inverse of the reference-checkpoint converter of the JAX package
 (``dawn_tpu/weights/torch_convert.py``), written anew here:
 
@@ -16,7 +21,7 @@ It is the inverse of the reference-checkpoint converter of the JAX package
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -159,6 +164,38 @@ def generator_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+def _hourglass(p: Mapping[str, Any], s: Mapping[str, Any]) -> StateDict:
+    """JAX Hourglass / HourglassEncoder {'encoder': {'down_i'}, 'decoder':
+    {'up_j'}} -> encoder.down_blocks.{i}, decoder.up_blocks.{j}."""
+    sd: StateDict = {}
+    for part, blocks, name in (("encoder", "down_blocks", "down"),
+                               ("decoder", "up_blocks", "up")):
+        for key in p.get(part, {}):
+            idx = key.rpartition("_")[2]
+            sd.update(_under(f"{part}.{blocks}.{idx}",
+                             _lfg_block(p[part][key], s[part][key])))
+    return sd
+
+
+def region_predictor_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    p, s = variables["params"], variables["batch_stats"]
+    return {**_under("predictor", _hourglass(p["predictor"], s["predictor"])),
+            **_under("regions", _conv2d(p["regions"]))}
+
+
+def bg_predictor_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    p, s = variables["params"], variables["batch_stats"]
+    return {**_hourglass({"encoder": p["encoder"]}, {"encoder": s["encoder"]}),
+            **_under("fc", _dense(p["fc"]))}
+
+
+def pixelwise_flow_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    p, s = variables["params"], variables["batch_stats"]
+    return {**_under("hourglass", _hourglass(p["hourglass"], s["hourglass"])),
+            **_under("mask", _conv2d(p["mask"])),
+            **_under("occlusion", _conv2d(p["occlusion"]))}
+
+
 def face_loc_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return {**_under("conv1", _conv2d(variables["params"]["conv1"])),
             **_under("conv2", _conv2d(variables["params"]["conv2"]))}
@@ -184,3 +221,33 @@ def load_flow_diffusion_variables(model, variables: Mapping[str, Any]) -> None:
     load_state(model.unet, unet_state_dict(variables["unet"]["params"]))
     load_state(model.generator, generator_state_dict(variables["generator"]))
     load_state(model.face_loc, face_loc_state_dict(variables["face_loc"]))
+
+
+def load_flow_ae_variables(flow_ae, variables: Mapping[str, Any]) -> None:
+    """Fill a port FlowAE in place from the JAX FlowAE variables tree
+    {generator, region_predictor, bg_predictor, pixelwise_flow_predictor}."""
+    load_state(flow_ae.generator, generator_state_dict(variables["generator"]))
+    load_state(flow_ae.region_predictor,
+               region_predictor_state_dict(variables["region_predictor"]))
+    load_state(flow_ae.bg_predictor, bg_predictor_state_dict(variables["bg_predictor"]))
+    load_state(flow_ae.pixelwise_flow_predictor,
+               pixelwise_flow_state_dict(variables["pixelwise_flow_predictor"]))
+
+
+def load_dm_trainer_variables(trainer, unet_params: Mapping[str, Any],
+                              lfg_variables: Mapping[str, Any],
+                              face_loc_variables: Mapping[str, Any],
+                              ema_params: Optional[Mapping[str, Any]] = None) -> None:
+    """Fill a port DMTrainer from a JAX trainer state: the UNet params tree
+    (the JAX state keeps them raveled; pass them unraveled), the frozen
+    ``state['frozen']['lfg']`` and ``['face_loc']`` variables and, when
+    given, the unraveled EMA params."""
+    load_state(trainer.unet, unet_state_dict(unet_params))
+    load_flow_ae_variables(trainer.flow_ae, lfg_variables)
+    load_state(trainer.face_loc, face_loc_state_dict(face_loc_variables))
+    if ema_params is not None and trainer.ema is not None:
+        sd = unet_state_dict(ema_params)
+        names = [name for name, _ in trainer.unet.named_parameters()]
+        with torch.no_grad():
+            for e, name in zip(trainer.ema, names):
+                e.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32)))
