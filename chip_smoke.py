@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc). Imports nothing of JAX or of
-the JAX package. Phases, one output line or more each, any failure exits
-non-zero:
+the JAX package. Phases, one output line or more each (and one "phase ...
+done" line with its seconds), any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc.
@@ -49,7 +49,29 @@ non-zero:
    round trip, and exactly 10 K1 and 10 K2 launches per step; reports the
    warm step time, examples/s, peak memory, and under torch.profiler the
    device's busy share and the kernels with the most device time.
-10. kernels - one JSON line listing every ported kernel with its numbers.
+10. kernel K3 - the tiled windowed-attention forward on the (N, H, T, D)
+   layout against its plain version (the banded form) on the card, TF32 off:
+   T=400 and T=800 at the 128^2 top level (N=1024, 8 x 32, w=40) in f32 and
+   bf16, T=257, T=333, T=1, one tile, no bias, w=20, and the 256^2 top level
+   (N=4096); kernel, plain, SDPA (with the (H, T, T) bias) and bound at the
+   T=400 and T=800 top-level shapes.
+11. kernel K4 - its backward against its plain version: dq, dk, dv, dvec
+   relative to each tensor's largest magnitude (T=400, 800, 257, 333, 1, one
+   64-row tile, no bias, w=70); autograd through local_attention on CUDA
+   tensors (K3 forward, K4 backward) against the plain autograd; kernel,
+   plain, SDPA backward and bound at T=400 and T=800.
+12. kernel K4 TemporalAttention - the gradient of one full-width temporal
+   attention block at the 128^2 top level of a 400-frame video (f32) through
+   K3 + K4 against the banded form's autograd, reaching the input, to_qkv,
+   to_out and the T5 table.
+13. parity T=264 - as phase 4 at 264 frames, past K1's range: exactly 20 K3
+   launches, no K1.
+14. long videos - full width, 20 DDIM steps, UNet bf16, LFG f32: 128^2 at
+   T=400 (cold call, warm call, profile), 128^2 at T=800 (decode chunk 32)
+   and 256^2 at T=400 (decode chunk 16), one call each: a finite video of
+   the right shape in [0, 1], exactly 200 K3 launches and no K1, K2 or K4,
+   seconds, frames/s and peak memory.
+15. kernels - one JSON line listing every ported kernel with its numbers.
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -73,6 +95,14 @@ def peaks_for(name):
         if key in name:
             return key, rates
     return "SXM", PEAKS["SXM"]
+
+
+def _bound(bytes_moved, flops, rates):
+    """(least ms, what bounds it): bytes over the memory rate or bf16
+    operations over the peak rate, whichever is larger."""
+    bound = {"bytes": bytes_moved / rates[0] * 1e3, "operations": flops / rates[1] * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by
 
 
 def time_ms(fn, iters):
@@ -146,17 +176,14 @@ def kernel_k1(card, rates):
     lib_err = (lib().transpose(1, 2).reshape(n, t, heads * d).float()
                - la.local_attention_packed_plain(q, k, v, vec, w, heads).float()).abs().max().item()
 
-    band = sum(min(t - 1, i + w) - max(0, i - w) + 1 for i in range(t))
     bytes_moved = 4 * n * t * heads * d * 2 + vec.numel() * 4
-    flops = 4 * d * band * n * heads
-    bw, bf16_peak, _ = rates
-    bound = {"bytes": bytes_moved / bw * 1e3, "operations": flops / bf16_peak * 1e3}
-    bound_by = max(bound, key=bound.get)
+    flops = 4 * d * band_entries(t, w) * n * heads
+    bound_ms, bound_by = _bound(bytes_moved, flops, rates)
     print(f"kernel K1 timing [{card}] main shape bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library (sdpa, err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound[bound_by]:.4f} ms "
+          f"library (sdpa, err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"by {bound_by} ({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
     return dict(max_abs_err=errs["main bf16"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[bound_by], bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def write_hdtf_tree(root, lengths, size, seed):
@@ -281,24 +308,20 @@ def kernel_k2(card, rates):
     with torch.no_grad():
         k1_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, scale=1.0), 20)
-    k1_bounds = {"bytes": (4 * n * t * heads * d * 2 + vec.numel() * 4) / rates[0] * 1e3,
-                 "operations": 4 * d * band_entries(t, w) * n * heads / rates[1] * 1e3}
-    k1_by = max(k1_bounds, key=k1_bounds.get)
+    k1_bound, k1_by = _bound(4 * n * t * heads * d * 2 + vec.numel() * 4,
+                             4 * d * band_entries(t, w) * n * heads, rates)
 
-    band = band_entries(t, w)
     bytes_moved = 7 * n * t * heads * d * 2 + 2 * vec.numel() * 4
-    flops = 10 * d * band * n * heads
-    bw, bf16_peak, _ = rates
-    bound = {"bytes": bytes_moved / bw * 1e3, "operations": flops / bf16_peak * 1e3}
-    bound_by = max(bound, key=bound.get)
+    flops = 10 * d * band_entries(t, w) * n * heads
+    bound_ms, bound_by = _bound(bytes_moved, flops, rates)
     print(f"kernel K2 timing [{card}] stage-1 shape bf16 (N={n} T={t} 8x32 w={w}): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa backward, dq/dk/dv only, "
-          f"err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound[bound_by]:.4f} ms by "
+          f"err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); K1 at the "
           f"same shape {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, library (sdpa) "
-          f"{k1_library_ms:.4f} ms, bound {k1_bounds[k1_by]:.4f} ms by {k1_by}", flush=True)
+          f"{k1_library_ms:.4f} ms, bound {k1_bound:.4f} ms by {k1_by}", flush=True)
     return dict(max_abs_err=max(errs[("stage-1 bf16", x)] for x in ("dq", "dk", "dv")),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound[bound_by], bound_by=bound_by,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
 
@@ -312,14 +335,16 @@ def inputs_for(t, img_size, seed):
                 bbox=torch.tensor([[30.0, 98.0, 25.0, 105.0, img_size, img_size]]))
 
 
-def parity():
-    """Phase 4: the card (kernel) against the CPU (plain path), f32, TF32 off."""
+def parity(t=40):
+    """Phase 4 (T=40, K1) and the long parity phase (T=264, K3): the card
+    (kernel) against the CPU (plain path), f32, TF32 off."""
     import torch
     from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t, steps = 40, 2
+    steps = 2
+    kernel = 0 if t <= 256 else 2                 # K1, or K3 past the packed range
     cfg = FlowDiffusionConfig(sampling_timesteps=steps, dtype=torch.float32)
     torch.manual_seed(SEED)
     gpu = FlowDiffusion(cfg, device="cuda")
@@ -328,59 +353,21 @@ def parity():
     inp = inputs_for(t, cfg.img_size, SEED + 1)
     noise = torch.randn((steps + 1, 1, t, cfg.latent_size, cfg.latent_size, 3),
                         generator=torch.Generator().manual_seed(SEED + 2))
-    before = _counts()[0]
+    _reset_counts()
     out_gpu = gpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"].cpu()
-    check(_counts()[0] - before == 10 * steps, "parity run did not go through K1")
+    launches = _counts()
+    want = tuple(10 * steps if i == kernel else 0 for i in range(4))
+    check(launches == want, f"parity launches (K1, K2, K3, K4) {launches} != {want}")
+    t0 = time.perf_counter()
     out_cpu = cpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"]
+    cpu_s = time.perf_counter() - t0
     err = (out_gpu - out_cpu).abs().max().item()
-    print(f"parity: sample_one_video T={t} steps={steps} f32 full width, card (K1) vs CPU "
-          f"(plain), TF32 off: max_abs_err={err:.3e} tol=1e-3", flush=True)
+    print(f"parity: sample_one_video T={t} steps={steps} f32 full width, card (K{kernel + 1} x "
+          f"{launches[kernel]}) vs CPU (plain, {cpu_s:.1f} s), TF32 off: max_abs_err={err:.3e} "
+          f"tol=1e-3", flush=True)
     check(err <= 1e-3, f"parity error {err}")
     del gpu, cpu
     torch.cuda.empty_cache()
-
-
-def main_path(card):
-    """Phase 5: the full-width 128^2 main path; returns K1's launches."""
-    import torch
-    from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
-
-    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
-    t = 200
-    cfg = FlowDiffusionConfig()                 # 128^2, 20 steps, local, UNet bf16, LFG f32
-    torch.manual_seed(SEED)
-    model = FlowDiffusion(cfg)
-    inp = inputs_for(t, cfg.img_size, SEED + 3)
-
-    def run():
-        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-        out = model.sample_one_video(**inp, generator=g)
-        torch.cuda.synchronize()
-        return out
-
-    t0 = time.perf_counter()
-    run()
-    cold = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    out = run()
-    secs = time.perf_counter() - t0
-    launches, k2_launches = _counts()
-    check(k2_launches == 0, f"sampling launched K2 {k2_launches} times")
-    vid = out["sample_out_vid"]
-    check(tuple(vid.shape) == (1, t, 128, 128, 3), f"video shape {tuple(vid.shape)}")
-    check(bool(torch.isfinite(vid).all()), "video has non-finite values")
-    lo, hi = vid.min().item(), vid.max().item()
-    check(0.0 <= lo and hi <= 1.0, f"video range [{lo}, {hi}]")
-    check(launches == 200, f"K1 launches {launches} != 200")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"path [{card}]: 128^2 T={t} 20 DDIM steps UNet bf16 LFG f32: video "
-          f"{tuple(vid.shape)} in [{lo:.4f}, {hi:.4f}], K1 launches {launches}; "
-          f"cold call {cold:.2f} s, warm call {secs:.3f} s = {t / secs:.2f} frames/s, "
-          f"peak memory {peak_gb:.2f} GiB", flush=True)
-    profile(run, card)
-    return launches
 
 
 def profile(run, card, what="profile"):
@@ -406,15 +393,21 @@ def profile(run, card, what="profile"):
               f"{e.key[:110]}", flush=True)
 
 
-def _reset_counts():
+def _wrappers():
+    """The kernel wrappers K1-K4, each with its launch count."""
     from dawn_tpu_torch.ops import local_attention as la
-    la.local_attention_packed.launches = 0
-    la.local_attention_packed_bwd.launches = 0
+    return (la.local_attention_packed, la.local_attention_packed_bwd,
+            la.local_attention_tiled, la.local_attention_tiled_bwd)
+
+
+def _reset_counts():
+    for fn in _wrappers():
+        fn.launches = 0
 
 
 def _counts():
-    from dawn_tpu_torch.ops import local_attention as la
-    return la.local_attention_packed.launches, la.local_attention_packed_bwd.launches
+    """(K1, K2, K3, K4) launches since the last reset."""
+    return tuple(fn.launches for fn in _wrappers())
 
 
 def _train_batch(b, t, size, seed):
@@ -457,7 +450,8 @@ def train_parity():
     got = gpu.train_step(batch, draws)
     launches = _counts()
     want = cpu.train_step(batch, draws)
-    check(launches == (10, 10), f"train-parity launches (K1, K2) {launches} != (10, 10)")
+    check(launches == (10, 10, 0, 0),
+          f"train-parity launches (K1, K2, K3, K4) {launches} != (10, 10, 0, 0)")
     for k in ("loss", "floss", "mouth_loss", "total"):
         check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
               f"train-parity {k}: {got[k]} vs {want[k]}")
@@ -528,8 +522,8 @@ def train_path(card):
     secs = time.perf_counter() - t0
     launches1 = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(launches1 == (10 * steps, 10 * steps),
-          f"stage-1 launches (K1, K2) {launches1} != {10 * steps} each")
+    check(launches1 == (10 * steps, 10 * steps, 0, 0),
+          f"stage-1 launches (K1, K2, K3, K4) {launches1} != {10 * steps} K1 and K2")
     lines = [json.loads(x) for x in open(os.path.join(work1, "metrics.jsonl"))]
     check([x["step"] for x in lines] == list(range(steps)), "stage-1 metrics.jsonl steps")
     check(all(np.isfinite(x[k]) for x in lines for k in ("total", "loss", "floss", "mouth_loss"))
@@ -578,8 +572,8 @@ def train_path(card):
                          f"--steps={steps2}", "--log-every=1", f"--workdir={work2}"])
     secs2 = time.perf_counter() - t0
     launches2 = _counts()
-    check(launches2 == (10 * steps2, 10 * steps2),
-          f"stage-2 launches (K1, K2) {launches2} != {10 * steps2} each")
+    check(launches2 == (10 * steps2, 10 * steps2, 0, 0),
+          f"stage-2 launches (K1, K2, K3, K4) {launches2} != {10 * steps2} K1 and K2")
     lines2 = [json.loads(x) for x in open(os.path.join(work2, "metrics.jsonl"))]
     check(trainer2.step == steps2 and all(np.isfinite(x["total"]) for x in lines2),
           "stage-2 losses not finite")
@@ -592,6 +586,274 @@ def train_path(card):
     torch.cuda.empty_cache()
     shutil.rmtree(tmp)
     return tuple(a + b for a, b in zip(launches1, launches2))
+
+
+def _tiled_inputs(gen, n, t, heads, w, dtype, bias=True, grad=False):
+    """Random (N, H, T, 32) q (pre-scaled), k, v (and g) with a (H, 2w+1)
+    f32 bias vector."""
+    import torch
+    xs = [torch.randn(n, heads, t, 32, device="cuda", generator=gen)
+          for _ in range(4 if grad else 3)]
+    xs[0] = xs[0] * 32 ** -0.5
+    vec = torch.randn(heads, 2 * w + 1, device="cuda", generator=gen) if bias else None
+    return [x.to(dtype) for x in xs] + [vec]
+
+
+def kernel_k3(card, rates):
+    """Phase: K3 against its plain version (the banded form) case by case;
+    timings at the 128^2 top-level shapes of T=400 and T=800."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the sampling top level (N = 32^2 sequences, 8 heads, w = 40) at 400 and
+    # 800 frames; just past the packed range; odd T; T = 1; one 128-query
+    # tile; no bias; w = 20; the 256^2 top level (N = 64^2; checked on its
+    # first and last 256 sequences, where the grid starts and ends).
+    # Tolerances: f32 1e-4 (sum order); bf16 2e-2 (one bf16 ulp of outputs
+    # in [2, 4)).
+    cases = [("main T=400 f32", 1024, 400, 40, f32, True, 1e-4),
+             ("main T=400 bf16", 1024, 400, 40, bf16, True, 2e-2),
+             ("main T=800 bf16", 1024, 800, 40, bf16, True, 2e-2),
+             ("T=800 f32", 64, 800, 40, f32, True, 1e-4),
+             ("T=257 w=20", 64, 257, 20, f32, True, 1e-4),
+             ("T=333", 64, 333, 40, f32, True, 1e-4),
+             ("T=333 w=20 bf16", 64, 333, 20, bf16, True, 2e-2),
+             ("T=1", 64, 1, 40, f32, True, 1e-4),
+             ("single tile T=100", 64, 100, 40, f32, True, 1e-4),
+             ("no bias", 64, 400, 40, f32, False, 1e-4),
+             ("256^2 top N=4096 T=400 bf16", 4096, 400, 40, bf16, True, 2e-2)]
+    errs = {}
+    for name, n, t, w, dtype, bias, tol in cases:
+        q, k, v, vec = _tiled_inputs(gen, n, t, 8, w, dtype, bias)
+        got = la.local_attention_tiled(q, k, v, vec, w)
+        parts = [slice(0, 256), slice(n - 256, n)] if n > 1024 else [slice(0, n)]
+        err = max((got[p].float() - la.local_attention_banded(q[p], k[p], v[p], vec, w).float())
+                  .abs().max().item() for p in parts)
+        torch.cuda.synchronize()
+        errs[name] = err
+        print(f"kernel K3 {name}: N={n} H=8 T={t} dh=32 w={w} {str(dtype)[6:]} "
+              f"max_abs_err={err:.3e} tol={tol:g}", flush=True)
+        check(err <= tol and np.isfinite(err), f"K3 {name} error {err} > {tol}")
+        del q, k, v, got
+
+    timing = {}
+    for t in (400, 800):
+        n, heads, w = 1024, 8, 40
+        q, k, v, vec = _tiled_inputs(gen, n, t, heads, w, bf16)
+        ms = time_ms(lambda: la.local_attention_tiled(q, k, v, vec, w), 10)
+        plain_ms = time_ms(lambda: la.local_attention_banded(q, k, v, vec, w), 3)
+        mask = la.windowed_bias(t, w, vec, "cuda").to(bf16)[None]        # (1, H, T, T)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0), 10)
+        bound_ms, bound_by = _bound(4 * q.numel() * 2 + vec.numel() * 4,
+                                    4 * 32 * band_entries(t, w) * n * heads, rates)
+        timing[t] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+        print(f"kernel K3 timing [{card}] 128^2 top level T={t} bf16 (N={n} 8x32 w={w}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa with the (H, T, T) "
+              f"bias) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}", flush=True)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=errs["main T=400 bf16"], **timing[400],
+                at_T800=dict(max_abs_err=errs["main T=800 bf16"], **timing[800]))
+
+
+def kernel_k4(card, rates):
+    """Phase: K4 against its plain version case by case; autograd through
+    local_attention on CUDA tensors (K3 + K4) against the plain autograd;
+    timings at the 128^2 top-level shapes of T=400 and T=800."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def compare(name, n, t, w, dtype, got, ref):
+        tol = 2e-2 if dtype == bf16 else 1e-4       # of each tensor's largest magnitude
+        parts, worst = [], 0.0
+        for label, a, b in zip(("dq", "dk", "dv", "dvec"), got, ref):
+            if b is None:
+                check(a is None, f"K4 {name}: {label} should be None")
+                continue
+            err = (a.float() - b.float()).abs().max().item()
+            rel = err / max(1e-30, b.float().abs().max().item())
+            worst = max(worst, err) if label != "dvec" else worst
+            parts.append(f"{label} {err:.3e} (rel {rel:.3e})")
+            check(np.isfinite(err) and rel <= tol, f"K4 {name} {label} error {rel} > {tol}")
+        print(f"kernel K4 {name}: N={n} H=8 T={t} dh=32 w={w} {str(dtype)[6:]} "
+              + ", ".join(parts) + f"; tol {tol:g} of max|ref|", flush=True)
+        return worst
+
+    # the sampling top level at 400 frames (bf16) and its f32 form on fewer
+    # sequences; 800 frames; just past the packed range; odd T; T = 1; one
+    # 64-row tile; no bias; a window wider than a tile (w = 70)
+    cases = [("T=400 f32", 256, 400, 40, f32, True),
+             ("T=800 f32", 64, 800, 40, f32, True),
+             ("T=257 w=20", 64, 257, 20, f32, True),
+             ("T=333 bf16", 64, 333, 40, bf16, True),
+             ("T=1", 64, 1, 40, f32, True),
+             ("single tile T=50", 64, 50, 40, f32, True),
+             ("no bias", 64, 400, 40, f32, False),
+             ("w=70", 64, 300, 70, f32, True)]
+    for name, n, t, w, dtype, bias in cases:
+        q, k, v, g, vec = _tiled_inputs(gen, n, t, 8, w, dtype, bias, grad=True)
+        compare(name, n, t, w, dtype, la.local_attention_tiled_bwd(q, k, v, g, vec, w),
+                la.local_attention_tiled_bwd_plain(q, k, v, g, vec, w))
+
+    # a loss through local_attention on CUDA tensors must reach q, k, v and
+    # the bias vector, through K3 forward and K4 backward
+    n, t, w = 64, 300, 40
+    q, k, v, g, vec = _tiled_inputs(gen, n, t, 8, w, f32, grad=True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, vec)]
+    _reset_counts()
+    out = la.local_attention(*leaves, w)
+    check(out.grad_fn is not None, "K3 output on the card has no grad_fn")
+    got = torch.autograd.grad(out, leaves, g)
+    check(_counts() == (0, 0, 1, 1), f"autograd launches (K1-K4) {_counts()} != (0, 0, 1, 1)")
+    ref = torch.autograd.grad(la.local_attention_banded(*leaves, w), leaves, g)
+    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
+    print(f"kernel K4 autograd: grad of local_attention on the card (K3 + K4) vs autograd of "
+          f"the plain version, N={n} T={t} f32, q/k/v/bias: max err {err:.3e} of max|ref| "
+          f"(tol 1e-4)", flush=True)
+    check(err <= 1e-4, f"K4 autograd error {err}")
+
+    timing = {}
+    for t in (400, 800):
+        n, heads, w = 1024, 8, 40
+        q, k, v, g, vec = _tiled_inputs(gen, n, t, heads, w, bf16, grad=True)
+        ms = time_ms(lambda: la.local_attention_tiled_bwd(q, k, v, g, vec, w), 5)
+        err = compare(f"main T={t} bf16", n, t, w, bf16,
+                      la.local_attention_tiled_bwd(q, k, v, g, vec, w),
+                      la.local_attention_tiled_bwd_plain(q, k, v, g, vec, w))
+        torch.cuda.empty_cache()
+        plain_ms = time_ms(lambda: la.local_attention_tiled_bwd_plain(q, k, v, g, vec, w), 2)
+        torch.cuda.empty_cache()
+        mask = la.windowed_bias(t, w, vec, "cuda").to(bf16)[None]        # (1, H, T, T)
+        ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                                   scale=1.0)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                                         retain_graph=True), 5)
+        bound_ms, bound_by = _bound(7 * q.numel() * 2 + 2 * vec.numel() * 4,
+                                    10 * 32 * band_entries(t, w) * n * heads, rates)
+        timing[t] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+        print(f"kernel K4 timing [{card}] 128^2 top level T={t} bf16 (N={n} 8x32 w={w}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa backward, dq/dk/dv "
+              f"only) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}", flush=True)
+        del q, k, v, g, ql, kl, vl, lib_out, mask
+        torch.cuda.empty_cache()
+    return dict(**timing[400], at_T800=timing[800])
+
+
+def temporal_attention_grad(card):
+    """Phase: the gradient of one full-width TemporalAttention at the 128^2
+    top-level shape of a 400-frame video (1 x 32^2 tokens x 400 frames x 64
+    channels, 8 heads x 32, w=40, f32, TF32 off) through K3 + K4, reaching
+    to_qkv, to_out, the T5 table and the input, against the same module with
+    the plain banded form's autograd in K3's place. Returns the (K1, K2, K3,
+    K4) launches of the K3 + K4 run."""
+    from unittest import mock
+    import torch
+    from dawn_tpu_torch.models.dm import unet3d
+    from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.ops.t5bias import t5_bias_windowed_vector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED + 40)
+    c, t, w = 64, 400, 40
+    attn = unet3d.TemporalAttention(c, 8, 32, "local", w, torch.float32).cuda()
+    table = torch.nn.Embedding(32, 8).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    x = torch.randn(1, 32 * 32, t, c, device="cuda", generator=gen).requires_grad_()
+    gout = torch.randn(1, 32 * 32, t, c, device="cuda", generator=gen)
+    params = [x, attn.to_qkv.weight, attn.to_out.weight, table.weight]
+
+    def grads():
+        vec = t5_bias_windowed_vector(table.weight, w, 32, 32)
+        return torch.autograd.grad(attn(x, None, vec), params, gout)
+
+    _reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    launches = _counts()
+    check(launches == (0, 0, 1, 1), f"TemporalAttention launches (K1-K4) {launches}")
+    with mock.patch.object(unet3d, "local_attention", la.local_attention_banded):
+        ref = grads()
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref)]
+    print(f"kernel K4 TemporalAttention [{card}]: grad of one full-width block at the 128^2 "
+          f"top level, T={t}, f32, through K3 x {launches[2]} + K4 x {launches[3]} vs the "
+          f"banded form's autograd: max err / max|ref| for x {errs[0]:.3e}, to_qkv "
+          f"{errs[1]:.3e}, to_out {errs[2]:.3e}, T5 table {errs[3]:.3e} (tol 1e-4)", flush=True)
+    check(max(errs) <= 1e-4, f"TemporalAttention gradient error {errs}")
+    del attn, x, gout, got, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def video_path(card, t, img_size=128, decode_chunk=0, timed=False):
+    """Phases 5-6 (T=200) and the long videos: one full-width 20-step video
+    (UNet bf16, LFG f32, random weights from the seed); with ``timed``, a
+    cold call, a warm call and a profiled call. Checks exactly 200 launches
+    of K1 (T <= 256) or K3 (T > 256) and none of the other kernels in the
+    (warm) call, and returns its (K1, K2, K3, K4) launches."""
+    import torch
+    from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    cfg = FlowDiffusionConfig(img_size=img_size, lfg_decode_chunk=decode_chunk)
+    torch.manual_seed(SEED)
+    model = FlowDiffusion(cfg)
+    inp = inputs_for(t, img_size, SEED + 3)
+
+    def run():
+        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        out = model.sample_one_video(**inp, generator=g)
+        torch.cuda.synchronize()
+        return out
+
+    cold = None
+    if timed:
+        t0 = time.perf_counter()
+        run()
+        cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    vid = out["sample_out_vid"]
+    shape = (1, t, img_size, img_size, 3)
+    check(tuple(vid.shape) == shape, f"video shape {tuple(vid.shape)} != {shape}")
+    check(bool(torch.isfinite(vid).all()), "video has non-finite values")
+    lo, hi = vid.min().item(), vid.max().item()
+    check(0.0 <= lo and hi <= 1.0, f"video range [{lo}, {hi}]")
+    kernel = 0 if t <= 256 else 2                 # K1, or K3 past the packed range
+    want = tuple(200 if i == kernel else 0 for i in range(4))
+    check(launches == want, f"launches (K1-K4) {launches} != {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    what = "path" + ("" if t == 200 else f" T={t}") + ("" if img_size == 128 else f" {img_size}^2")
+    print(f"{what} [{card}]: {img_size}^2 T={t} 20 DDIM steps UNet bf16 LFG f32 decode chunk "
+          f"{decode_chunk or 'all'}: video {tuple(vid.shape)} in [{lo:.4f}, {hi:.4f}], "
+          f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, K4 {launches[3]}; "
+          + (f"cold call {cold:.2f} s, warm call " if timed else "one call (cold) ")
+          + f"{secs:.3f} s = {t / secs:.2f} frames/s, peak memory {peak_gb:.2f} GiB", flush=True)
+    if timed:
+        profile(run, card, "profile" + ("" if t == 200 else f" T={t}"))
+    del model, out, vid
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -610,27 +872,48 @@ def main():
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"peaks used: H100 {peak_name})", flush=True)
 
-    t0 = time.perf_counter()
-    build.build_all()
+    start = t0 = time.perf_counter()
+    logs = build.build_all()
     print(f"build: {', '.join(build.sources())} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():       # ptxas -v: each kernel's registers, as printed
+        for line in log.splitlines():
+            if "Compiling entry function" in line or "registers" in line:
+                print(f"build: {name}.cu {line.strip()}", flush=True)
 
-    k1 = kernel_k1(smi, rates)
-    parity()
-    launches = main_path(smi)
-    k2 = kernel_k2(smi, rates)
-    train_parity()
-    k1_train, k2_train = train_path(smi)
-    kernels = [{"name": "K1 local_attention_packed", "route": "cuda",
-                "source": "dawn_tpu_torch/csrc/local_attention.cu",
-                "replaces": "dawn_tpu/ops/local_attention.py:299",
-                "launches": launches, **k1,
-                "launches_by_path": {"sample": launches, "train": k1_train}},
-               {"name": "K2 local_attention_packed_bwd", "route": "cuda",
-                "source": "dawn_tpu_torch/csrc/local_attention_bwd.cu",
-                "replaces": "dawn_tpu/ops/local_attention.py:743",
-                "launches": k2_train, **k2,
-                "launches_by_path": {"sample": 0, "train": k2_train}}]
-    check(k2_train > 0, "K2 never launched on the training path")
+    def phase(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase {fn.__name__} done in {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - start:.1f} s since start)", flush=True)
+        return out
+
+    k1 = phase(kernel_k1, smi, rates)
+    phase(parity)
+    sample = phase(video_path, smi, 200, timed=True)
+    k2 = phase(kernel_k2, smi, rates)
+    phase(train_parity)
+    train = phase(train_path, smi)
+    k3 = phase(kernel_k3, smi, rates)
+    k4 = phase(kernel_k4, smi, rates)
+    grad_t400 = phase(temporal_attention_grad, smi)
+    phase(parity, 264)
+    paths = {"sample": sample, "train": train,
+             "sample_T400": phase(video_path, smi, 400, timed=True),
+             "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
+             "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
+             "temporal_attention_grad_T400": grad_t400}
+    # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
+    rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "sample"),
+            ("K2 local_attention_packed_bwd", "local_attention_bwd.cu", 743, k2, "train"),
+            ("K3 local_attention_tiled", "local_attention.cu", 116, k3, "sample_T400"),
+            ("K4 local_attention_tiled_bwd", "local_attention_tiled_bwd.cu", 876, k4,
+             "temporal_attention_grad_T400")]
+    kernels = [{"name": name, "route": "cuda", "source": f"dawn_tpu_torch/csrc/{src}",
+                "replaces": f"dawn_tpu/ops/local_attention.py:{line}",
+                "launches": paths[main_path][i], **measured,
+                "launches_by_path": {p: c[i] for p, c in paths.items()}}
+               for i, (name, src, line, measured, main_path) in enumerate(rows)]
+    check(train[1] > 0, "K2 never launched on the training path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

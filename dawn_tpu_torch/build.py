@@ -20,7 +20,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -57,20 +57,22 @@ def _start_build(name: str):
     return proc, tmp, out
 
 
-def _finish_build(name: str, proc, tmp: str, out: str) -> None:
+def _finish_build(name: str, proc, tmp: str, out: str) -> str:
+    """Wait for nvcc; returns its output (ptxas's registers per kernel)."""
     if proc is None:
-        return
+        return ""
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all() -> None:
-    """Compile every source that has no library yet, all in parallel."""
+def build_all() -> Dict[str, str]:
+    """Compile every source that has no library yet, all in parallel;
+    returns nvcc's output per source (empty for one already built)."""
     started = [(name, *_start_build(name)) for name in sources()]
-    for name, proc, tmp, out in started:
-        _finish_build(name, proc, tmp, out)
+    return {name: _finish_build(name, proc, tmp, out) for name, proc, tmp, out in started}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,18 +1,23 @@
-// K1: windowed temporal attention, forward, packed (N, T, H*D) layout.
+// K1 and K3: windowed temporal attention, forward.
 //
-// Replaces dawn_tpu/ops/local_attention.py::_local_attn_packed_kernel (the
-// Pallas TPU body launched by local_attention_packed). For every sequence n,
+// K1 replaces dawn_tpu/ops/local_attention.py::_local_attn_packed_kernel (the
+// Pallas TPU body launched by local_attention_packed) on the packed (N, T,
+// H*D) layout, T <= 256. K3 replaces _local_attn_tile_kernel (the body
+// launched by local_attention_pallas) on the (N, H, T, D) layout, any T. Both
+// run the one body below, templated on the layout: for every sequence n,
 // head h and query i it computes
 //     out[n, i, h] = sum_j softmax_j(q_i . k_j + bias[h, j - i + w]) v_j
 // over the keys j with |j - i| <= w and 0 <= j < T. q is pre-scaled by
-// dh^-0.5 and rotary-rotated by the caller. The TPU kernel gives the keys
-// outside that band a -1e9 additive bias; in f32 their weight is exactly 0,
-// so skipping them here computes the same function.
+// dh^-0.5 and rotary-rotated by the caller. The TPU kernels give the keys
+// outside that band a -1e9 additive bias (K3: also the keys of clamped edge
+// tiles and those past T); in f32 their weight is exactly 0, so visiting
+// only the in-range band here computes the same function.
 //
-// What bounds it on an H100: memory. At the top 128^2 UNet level (N=1024,
-// T=200, H*dh=256, bf16) q, k, v and out come to 4*1024*200*256*2 B = 419 MB,
-// about 125 us at the H100 SXM's 3.35 TB/s; the in-band work is
-// 4*N*H*T*(2w+1)*dh ~ 17 GFLOP, about 17 us at the 989 TFLOP/s bf16 peak.
+// What bounds it on an H100: memory. K1 at the top 128^2 UNet level (N=1024,
+// T=200, H*dh=256, bf16): q, k, v and out come to 4*1024*200*256*2 B = 419
+// MB, about 125 us at the H100 SXM's 3.35 TB/s; the in-band work is
+// 4*N*H*T*(2w+1)*dh ~ 17 GFLOP, about 17 us at the 989 TFLOP/s bf16 peak. K3
+// at the same level of a 400-frame video: 839 MB, 0.250 ms; 32 GFLOP.
 // What the design does about it: one pass over q, k, v and out. A block
 // owns one (sequence, head, tile of kQueryTile queries); it stages only the
 // key/value rows the tile's band touches, [q0-w, q1-1+w] cut to [0, T), in
@@ -20,13 +25,18 @@
 // memory, and writes no score, probability or bias tensor to device memory.
 // One thread owns one query row: scores, the row max and the row sum in f32,
 // p.v accumulated in f32 registers, divided by the row sum once at the end,
-// stored in the input dtype. No tensor cores yet (mma/wgmma, TMA and
-// pipelining are later work).
+// stored in the input dtype. Unlike the TPU's K3 (left, center and right key
+// tiles of bq >= w rows each, masked), the staged rows are exactly the band's,
+// so any w that fits shared memory works (2*(128+2w)*33*4 B <= 227 KB: w <=
+// 376). (N*H, tiles) go on gridDim.x and y: 256^2 at T=400 has 32768 (n, h)
+// pairs. No tensor cores yet (mma/wgmma, TMA and pipelining are later work).
 //
 // C interface (bound with ctypes):
 //   int dawn_local_attn_packed_fwd(q, k, v, bias, out, n, t, heads, dim_head,
-//                                  window, is_bf16, stream)
-// returns cudaGetLastError() after the launch (0 on success), or
+//                                  window, is_bf16, stream)      K1, (N, T, H*D)
+//   int dawn_local_attn_tiled_fwd(q, k, v, bias, out, n, t, heads, dim_head,
+//                                 window, is_bf16, stream)       K3, (N, H, T, D)
+// each returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a dim_head it was not built for.
 
 #include <cuda_bf16.h>
@@ -46,17 +56,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// kPacked: the (N, T, H*D) layout, grid (N, H, tiles); else (N, H, T, D),
+// grid (N*H, tiles).
+template <typename T, int D, bool kPacked>
 __global__ void __launch_bounds__(kQueryTile)
-local_attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ bias,
-                         T* __restrict__ out, int seq_len, int heads, int window) {
+local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ bias,
+                      T* __restrict__ out, int seq_len, int heads, int window) {
   extern __shared__ float smem[];
   // rows padded to D+1 floats: the threads of a warp read consecutive key
   // rows at the same column, and the padding puts them in distinct banks
   constexpr int kStride = D + 1;
-  const int n = blockIdx.x, h = blockIdx.y;
-  const int q0 = blockIdx.z * kQueryTile;
+  const int h = kPacked ? blockIdx.y : blockIdx.x % heads;
+  const int q0 = (kPacked ? blockIdx.z : blockIdx.y) * kQueryTile;
   const int q1 = min(q0 + kQueryTile, seq_len);      // exclusive
   const int k0 = max(q0 - window, 0);
   const int k1 = min(q1 - 1 + window, seq_len - 1);  // inclusive
@@ -66,8 +78,10 @@ local_attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + rows * kStride;
   float* bs = vs + rows * kStride;
 
-  const int hd = heads * D;
-  const size_t base = (size_t)n * seq_len * hd + (size_t)h * D;
+  // element (row r, column d) of this (sequence, head) is at base + r*hd + d
+  const int hd = kPacked ? heads * D : D;
+  const size_t base = kPacked ? (size_t)blockIdx.x * seq_len * hd + (size_t)h * D
+                              : (size_t)blockIdx.x * seq_len * D;
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
     const size_t g = base + (size_t)(k0 + r) * hd + d;
@@ -116,22 +130,34 @@ local_attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) out[row + d] = from_f32<T>(acc[d] * inv);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPacked>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    void* out, int n, int t, int heads, int window,
                    cudaStream_t stream) {
   const int rows_max = min(t, kQueryTile + 2 * window);
   const size_t smem =
       (2 * (size_t)rows_max * (D + 1) + (2 * (size_t)window + 1)) * sizeof(float);
-  auto kernel = local_attn_packed_kernel<T, D>;
+  auto kernel = local_attn_fwd_kernel<T, D, kPacked>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n, heads, (t + kQueryTile - 1) / kQueryTile);
+  const int tiles = (t + kQueryTile - 1) / kQueryTile;
+  const dim3 grid = kPacked ? dim3(n, heads, tiles) : dim3(n * heads, tiles);
   kernel<<<grid, kQueryTile, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<T*>(out), t, heads, window);
   return cudaGetLastError();
+}
+
+template <bool kPacked>
+int launch_any(const void* q, const void* k, const void* v, const void* bias, void* out,
+               int n, int t, int heads, int dim_head, int window, int is_bf16,
+               void* stream) {
+  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+      ? launch<__nv_bfloat16, 32, kPacked>(q, k, v, bias, out, n, t, heads, window, s)
+      : launch<float, 32, kPacked>(q, k, v, bias, out, n, t, heads, window, s));
 }
 
 }  // namespace
@@ -140,8 +166,14 @@ extern "C" int dawn_local_attn_packed_fwd(const void* q, const void* k, const vo
                                           const void* bias, void* out, int n, int t,
                                           int heads, int dim_head, int window,
                                           int is_bf16, void* stream) {
-  if (dim_head != 32) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, bias, out, n, t, heads, window, s)
-                       : launch<float, 32>(q, k, v, bias, out, n, t, heads, window, s));
+  return launch_any<true>(q, k, v, bias, out, n, t, heads, dim_head, window, is_bf16,
+                          stream);
+}
+
+extern "C" int dawn_local_attn_tiled_fwd(const void* q, const void* k, const void* v,
+                                         const void* bias, void* out, int n, int t,
+                                         int heads, int dim_head, int window,
+                                         int is_bf16, void* stream) {
+  return launch_any<false>(q, k, v, bias, out, n, t, heads, dim_head, window, is_bf16,
+                           stream);
 }

@@ -13,11 +13,14 @@ DAWN-pytorch ``state_dict`` (``downs.{i}.3.fn.fn.fn.to_qkv.weight``,
 ``ups.{i}.4`` a ConvTranspose3d, per-frame convs as Conv3d with kernel
 (1, k, k)), so reference checkpoints map onto it by name.
 
-In 'local' attention mode every temporal attention goes through K1
-(:func:`dawn_tpu_torch.ops.local_attention.local_attention_packed`): the CUDA
-kernel on the card, its plain version on the CPU. With grad on it is the
-autograd Function ``LocalAttentionPacked``, whose backward is K2, so the
-training step runs one K1 and one K2 per temporal attention.
+In 'local' attention mode a temporal attention over T <= 256 frames goes
+through K1 (:func:`dawn_tpu_torch.ops.local_attention.local_attention_packed`)
+on the packed (B*S, T, H*D) layout: the CUDA kernel on the card, its plain
+version on the CPU. With grad on it is the autograd Function
+``LocalAttentionPacked``, whose backward is K2, so the training step runs one
+K1 and one K2 per temporal attention. Longer videos take the JAX package's
+split-heads route to :func:`dawn_tpu_torch.ops.local_attention.local_attention`:
+K3 on the card (backward K4), the banded form on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from dawn_tpu_torch.ops.convs import conv2d_nhwc, conv_transpose2d_nhwc
-from dawn_tpu_torch.ops.local_attention import (local_attention_packed,
+from dawn_tpu_torch.ops.local_attention import (PACKED_MAX_T, local_attention,
+                                                local_attention_packed,
                                                 windowed_full_attention)
 from dawn_tpu_torch.ops.norms import channel_layer_norm, video_group_norm
 from dawn_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
@@ -280,8 +284,10 @@ class SpatialFullAttention(nn.Module):
 class TemporalAttention(nn.Module):
     """Attention over the frame axis of (B, S, T, C) tokens with rotary
     embedding and the T5 window bias. 'local' runs K1 on the packed
-    (B*S, T, H*D) layout; 'full' runs the windowed-full (T, T) form with the
-    caller's (1, 1, H, T, T) bias. Both compute the same function."""
+    (B*S, T, H*D) layout for T <= 256 and :func:`local_attention` (K3) on
+    the split-heads (B*S, H, T, D) layout above that, as the JAX module
+    does; 'full' runs the windowed-full (T, T) form with the caller's
+    (1, 1, H, T, T) bias. All compute the same function."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mode: str, window: int,
                  dtype):
@@ -299,6 +305,14 @@ class TemporalAttention(nn.Module):
         nh, d = self.heads, self.dim_head
         qkv = linear(x, self.to_qkv, self.dtype).reshape(b * s, t, 3, nh, d)
         cos, sin = rotary_cos_sin(t, min(32, d), dtype=qkv.dtype, device=x.device)
+        if self.mode == "local" and t > PACKED_MAX_T:
+            # split heads, scale q, rotate, attend (dawn_tpu/models/dm/unet3d.py:566-589)
+            q, k, v = (z.transpose(1, 2) for z in qkv.unbind(2))     # (B*S, H, T, D)
+            q = apply_rotary(q * d ** -0.5, cos, sin).contiguous()
+            k = apply_rotary(k, cos, sin).contiguous()
+            out = local_attention(q, k, v.contiguous(), bias_vec, self.window)
+            out = out.transpose(1, 2)                            # (B*S, T, H, D)
+            return linear(out.reshape(b, s, t, nh * d), self.to_out, self.dtype)
         cos, sin = cos[:, None], sin[:, None]                    # (T, 1, rot)
         q = apply_rotary(qkv[:, :, 0] * d ** -0.5, cos, sin)     # (B*S, T, H, D)
         k = apply_rotary(qkv[:, :, 1], cos, sin)

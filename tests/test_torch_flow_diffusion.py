@@ -8,7 +8,8 @@ threshold (a data-dependent quantile) and the decode warps by the sampled
 flow, so the UNet's 5e-4 agreement compounds over the two steps and the
 warp; the outputs themselves are of order one.
 The port also decodes in ragged chunks of 5 frames (5 + 5 + 2), which must
-give the same video: decoding is per frame.
+give the same video: decoding is per frame. A third case runs T=260 frames,
+past K1's packed range of 256.
 """
 
 import numpy as np
@@ -28,30 +29,42 @@ KW = dict(img_size=32, dim_mults=(1, 2), lfg_max_features=256, lfg_num_bottlenec
 B, T = 1, 12
 
 
-def _inputs():
+def _inputs(t):
     rng = np.random.RandomState(11)
     return dict(
         sample_img=rng.rand(B, 32, 32, 3).astype(np.float32),
-        audio_hubert=rng.randn(B, T, 1024).astype(np.float32),
-        pose=rng.randn(B, T, 6).astype(np.float32),
-        eye=rng.randn(B, T, 2).astype(np.float32),
+        audio_hubert=rng.randn(B, t, 1024).astype(np.float32),
+        pose=rng.randn(B, t, 6).astype(np.float32),
+        eye=rng.randn(B, t, 2).astype(np.float32),
         bbox=np.array([[5.0, 20.0, 6.0, 25.0, 32.0, 32.0]], np.float32),
-        noise_seq=rng.randn(3, B, T, 8, 8, 3).astype(np.float32))
+        noise_seq=rng.randn(3, B, t, 8, 8, 3).astype(np.float32))
 
 
 @pytest.fixture(scope="module")
 def reference():
+    """The JAX video for T frames, computed once per T."""
     jfd = JaxFlowDiffusion(JaxConfig(**KW))
     variables = random_tree(jax.eval_shape(jfd.init_variables, jax.random.PRNGKey(0)), 9)
-    inp = _inputs()
-    out = jax.jit(lambda v, a: jfd.sample_one_video(v, jax.random.PRNGKey(0), **a))(
-        variables, {k: jnp.asarray(v) for k, v in inp.items()})
-    return variables, inp, {k: np.asarray(v) for k, v in out.items()}
+    sample = jax.jit(lambda v, a: jfd.sample_one_video(v, jax.random.PRNGKey(0), **a))
+    cache = {}
+
+    def get(t):
+        if t not in cache:
+            inp = _inputs(t)
+            out = sample(variables, {k: jnp.asarray(v) for k, v in inp.items()})
+            cache[t] = variables, inp, {k: np.asarray(v) for k, v in out.items()}
+        return cache[t]
+
+    return get
 
 
-@pytest.mark.parametrize("decode_chunk", [0, 5])
-def test_sample_one_video_matches_jax(reference, decode_chunk):
-    variables, inp, ref = reference
+# T=260 is past K1's packed range: every temporal attention takes the
+# split-heads local_attention route (the banded form here, K3 on the card)
+@pytest.mark.parametrize("t,decode_chunk", [pytest.param(T, 0, id="0"),
+                                            pytest.param(T, 5, id="5"),
+                                            pytest.param(260, 0, id="T260")])
+def test_sample_one_video_matches_jax(reference, t, decode_chunk):
+    variables, inp, ref = reference(t)
     port = FlowDiffusion(FlowDiffusionConfig(dtype=torch.float32, lfg_decode_chunk=decode_chunk,
                                              **KW), device="cpu")
     load_flow_diffusion_variables(port, variables)

@@ -7,8 +7,9 @@ tests/test_local_attention.py::TestPackedKernel, and against its banded XLA
 form on the main-path case (T=200, w=40), at atol 1e-5; the JAX package's
 own tests hold its two forms together on every case. The port's
 TemporalAttention block, in 'local' and 'full' modes, is held against the
-JAX module with weights carried by the bridge. The CUDA kernel itself runs
-only on the card (chip_smoke.py holds it against the plain form there).
+JAX module with weights carried by the bridge, and in 'local' mode also at
+T=260, past K1's range. The CUDA kernel itself runs only on the card
+(chip_smoke.py holds it against the plain form there).
 """
 
 import numpy as np
@@ -87,9 +88,17 @@ def temporal_block():
     return mod, random_tree(shapes, 3), x, emb, (c, heads, dh, w, t)
 
 
-@pytest.mark.parametrize("mode", ["local", "full"])
-def test_temporal_attention_matches_jax(temporal_block, mode):
+@pytest.mark.parametrize("mode,long_t", [pytest.param("local", None, id="local"),
+                                         pytest.param("full", None, id="full"),
+                                         pytest.param("local", 260, id="local-T260")])
+def test_temporal_attention_matches_jax(temporal_block, mode, long_t):
+    """The block at T=24 (K1's packed route in 'local' mode) and at T=260,
+    past the packed range, where both packages split heads and take their
+    (N, H, T, D) local_attention (the banded form on the CPU; K3 on the card)."""
     mod, params, x, emb, (c, heads, dh, w, t) = temporal_block
+    if long_t is not None:
+        t = long_t
+        x = np.random.RandomState(4).randn(1, t, 2, 2, c).astype(np.float32)
     vec = t5_bias_windowed_vector(emb, w, 32, 32)
     pos_bias = (t5_bias_matrix(emb, t, 32, 32) + jnp.asarray(window_mask(t, w)))[None, None]
     jmod = mod.clone(mode=mode)
