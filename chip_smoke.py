@@ -71,7 +71,36 @@ done" line with its seconds), any failure exits non-zero:
    and 256^2 at T=400 (decode chunk 16), one call each: a finite video of
    the right shape in [0, 1], exactly 200 K3 launches and no K1, K2 or K4,
    seconds, frames/s and peak memory.
-15. kernels - one JSON line listing every ported kernel with its numbers.
+15. kernel K5 - the stripe forward of sequence parallelism against its plain
+   version (the JAX package's (H, TQ, TK) stripe bias) on the card, TF32 off:
+   the 2- and 4-rank splits of the 128^2 top level at T=200 (N=1024, 8 x 32,
+   w=40: t_loc 100 and 50) on edge and interior stripes in f32 and bf16,
+   both edges, t_loc = w, odd t_loc, no bias; one whole sequence cut into
+   stripes on the card (halo by slicing, edge flags by position) against K1
+   at T=200 (2 and 4 stripes) and K3 at T=400 (2 stripes); kernel, plain,
+   SDPA (with the (H, TQ, TK) bias) and bound at the 2-rank stripe in bf16.
+16. kernel K6 - its backward against its plain version (the stage-2 stripe
+   N=1024, t_loc=20, 60 keys, w=20 in f32 and bf16, interior, both edges,
+   the 180-key sampling stripe, t_loc = w, odd, no bias, 256 keys); stripe
+   gradients of one sequence, halo rows added to their owners, against K2;
+   autograd through LocalAttentionStripe on CUDA tensors (K5 + K6); kernel,
+   plain, SDPA backward and bound at the stage-2 stripe in bf16.
+17. seq path - a one-rank NCCL process group (file store, no network) and
+   its mesh; the UNet's stripe forced, so one card runs the program of an
+   edge rank (halo exchange, K5, the GroupNorm all-reduces and the
+   quantile all-gather through NCCL): make_seq_sampler against
+   sample_one_video (K1) at full width, f32, T=40, 2 steps, same weights and
+   noise, tolerance 1e-3; then the 128^2 T=200 20-step bf16 video: finite,
+   in [0, 1], exactly 200 K5 launches and no K1 or K3, cold and warm
+   seconds, frames/s and peak memory, and the warm call under the profiler.
+18. seq train path - DMTrainer.make_sharded_step on that mesh, stripe
+   forced: one f32 stage-1 step (bs 1, 20 frames, the fewest a stripe of
+   win_width 20 takes) against the unsharded train_step on the card at
+   train-parity's tolerances; then 2 full-width bf16 stage-2 steps (bs 4, 40
+   diffused frames): finite losses, exactly 10 K5 + 10 K6 launches a step,
+   the warm step's time.
+19. kernels - one JSON line listing every ported kernel (K1-K6) with its
+   numbers and its launches on every path.
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -356,8 +385,8 @@ def parity(t=40):
     _reset_counts()
     out_gpu = gpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"].cpu()
     launches = _counts()
-    want = tuple(10 * steps if i == kernel else 0 for i in range(4))
-    check(launches == want, f"parity launches (K1, K2, K3, K4) {launches} != {want}")
+    want = tuple(10 * steps if i == kernel else 0 for i in range(6))
+    check(launches == want, f"parity launches (K1-K6) {launches} != {want}")
     t0 = time.perf_counter()
     out_cpu = cpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"]
     cpu_s = time.perf_counter() - t0
@@ -394,10 +423,11 @@ def profile(run, card, what="profile"):
 
 
 def _wrappers():
-    """The kernel wrappers K1-K4, each with its launch count."""
+    """The kernel wrappers K1-K6, each with its launch count."""
     from dawn_tpu_torch.ops import local_attention as la
     return (la.local_attention_packed, la.local_attention_packed_bwd,
-            la.local_attention_tiled, la.local_attention_tiled_bwd)
+            la.local_attention_tiled, la.local_attention_tiled_bwd,
+            la.local_attention_packed_stripe, la.local_attention_packed_stripe_bwd)
 
 
 def _reset_counts():
@@ -406,7 +436,7 @@ def _reset_counts():
 
 
 def _counts():
-    """(K1, K2, K3, K4) launches since the last reset."""
+    """(K1, ..., K6) launches since the last reset."""
     return tuple(fn.launches for fn in _wrappers())
 
 
@@ -450,8 +480,8 @@ def train_parity():
     got = gpu.train_step(batch, draws)
     launches = _counts()
     want = cpu.train_step(batch, draws)
-    check(launches == (10, 10, 0, 0),
-          f"train-parity launches (K1, K2, K3, K4) {launches} != (10, 10, 0, 0)")
+    check(launches == (10, 10, 0, 0, 0, 0),
+          f"train-parity launches (K1-K6) {launches} != (10, 10, 0, 0, 0, 0)")
     for k in ("loss", "floss", "mouth_loss", "total"):
         check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
               f"train-parity {k}: {got[k]} vs {want[k]}")
@@ -487,8 +517,8 @@ def train_parity():
 
 
 def train_path(card):
-    """Phase 9: the training CLI at the per-chip recipe point; returns (K1,
-    K2) launches of its stage-1 and stage-2 runs."""
+    """Phase 9: the training CLI at the per-chip recipe point; returns the
+    (K1, ..., K6) launches of its stage-1 and stage-2 runs."""
     import tempfile
     import numpy as np
     import torch
@@ -522,8 +552,8 @@ def train_path(card):
     secs = time.perf_counter() - t0
     launches1 = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(launches1 == (10 * steps, 10 * steps, 0, 0),
-          f"stage-1 launches (K1, K2, K3, K4) {launches1} != {10 * steps} K1 and K2")
+    check(launches1 == (10 * steps, 10 * steps, 0, 0, 0, 0),
+          f"stage-1 launches (K1-K6) {launches1} != {10 * steps} K1 and K2")
     lines = [json.loads(x) for x in open(os.path.join(work1, "metrics.jsonl"))]
     check([x["step"] for x in lines] == list(range(steps)), "stage-1 metrics.jsonl steps")
     check(all(np.isfinite(x[k]) for x in lines for k in ("total", "loss", "floss", "mouth_loss"))
@@ -572,8 +602,8 @@ def train_path(card):
                          f"--steps={steps2}", "--log-every=1", f"--workdir={work2}"])
     secs2 = time.perf_counter() - t0
     launches2 = _counts()
-    check(launches2 == (10 * steps2, 10 * steps2, 0, 0),
-          f"stage-2 launches (K1, K2, K3, K4) {launches2} != {10 * steps2} K1 and K2")
+    check(launches2 == (10 * steps2, 10 * steps2, 0, 0, 0, 0),
+          f"stage-2 launches (K1-K6) {launches2} != {10 * steps2} K1 and K2")
     lines2 = [json.loads(x) for x in open(os.path.join(work2, "metrics.jsonl"))]
     check(trainer2.step == steps2 and all(np.isfinite(x["total"]) for x in lines2),
           "stage-2 losses not finite")
@@ -718,7 +748,7 @@ def kernel_k4(card, rates):
     out = la.local_attention(*leaves, w)
     check(out.grad_fn is not None, "K3 output on the card has no grad_fn")
     got = torch.autograd.grad(out, leaves, g)
-    check(_counts() == (0, 0, 1, 1), f"autograd launches (K1-K4) {_counts()} != (0, 0, 1, 1)")
+    check(_counts() == (0, 0, 1, 1, 0, 0), f"autograd launches (K1-K6) {_counts()}")
     ref = torch.autograd.grad(la.local_attention_banded(*leaves, w), leaves, g)
     err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
     print(f"kernel K4 autograd: grad of local_attention on the card (K3 + K4) vs autograd of "
@@ -760,8 +790,8 @@ def temporal_attention_grad(card):
     top-level shape of a 400-frame video (1 x 32^2 tokens x 400 frames x 64
     channels, 8 heads x 32, w=40, f32, TF32 off) through K3 + K4, reaching
     to_qkv, to_out, the T5 table and the input, against the same module with
-    the plain banded form's autograd in K3's place. Returns the (K1, K2, K3,
-    K4) launches of the K3 + K4 run."""
+    the plain banded form's autograd in K3's place. Returns the (K1, ..., K6)
+    launches of the K3 + K4 run."""
     from unittest import mock
     import torch
     from dawn_tpu_torch.models.dm import unet3d
@@ -787,7 +817,7 @@ def temporal_attention_grad(card):
     got = grads()
     torch.cuda.synchronize()
     launches = _counts()
-    check(launches == (0, 0, 1, 1), f"TemporalAttention launches (K1-K4) {launches}")
+    check(launches == (0, 0, 1, 1, 0, 0), f"TemporalAttention launches (K1-K6) {launches}")
     with mock.patch.object(unet3d, "local_attention", la.local_attention_banded):
         ref = grads()
     errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref)]
@@ -806,7 +836,7 @@ def video_path(card, t, img_size=128, decode_chunk=0, timed=False):
     (UNet bf16, LFG f32, random weights from the seed); with ``timed``, a
     cold call, a warm call and a profiled call. Checks exactly 200 launches
     of K1 (T <= 256) or K3 (T > 256) and none of the other kernels in the
-    (warm) call, and returns its (K1, K2, K3, K4) launches."""
+    (warm) call, and returns its (K1, ..., K6) launches."""
     import torch
     from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
 
@@ -840,8 +870,8 @@ def video_path(card, t, img_size=128, decode_chunk=0, timed=False):
     lo, hi = vid.min().item(), vid.max().item()
     check(0.0 <= lo and hi <= 1.0, f"video range [{lo}, {hi}]")
     kernel = 0 if t <= 256 else 2                 # K1, or K3 past the packed range
-    want = tuple(200 if i == kernel else 0 for i in range(4))
-    check(launches == want, f"launches (K1-K4) {launches} != {want}")
+    want = tuple(200 if i == kernel else 0 for i in range(6))
+    check(launches == want, f"launches (K1-K6) {launches} != {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     what = "path" + ("" if t == 200 else f" T={t}") + ("" if img_size == 128 else f" {img_size}^2")
     print(f"{what} [{card}]: {img_size}^2 T={t} 20 DDIM steps UNet bf16 LFG f32 decode chunk "
@@ -852,6 +882,437 @@ def video_path(card, t, img_size=128, decode_chunk=0, timed=False):
     if timed:
         profile(run, card, "profile" + ("" if t == 200 else f" T={t}"))
     del model, out, vid
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stripe(x, r, ranks, w):
+    """Rank r's haloed stripe of a whole (N, T, HD) sequence split over
+    ``ranks``: its T/ranks rows and w rows on each side (zeros past the
+    ends), as the halo exchange assembles it."""
+    import torch.nn.functional as F
+    t_loc = x.shape[1] // ranks
+    return F.pad(x, (0, 0, w, w))[:, r * t_loc:r * t_loc + t_loc + 2 * w].contiguous()
+
+
+def stripe_pairs(t_loc, w, left, right):
+    """(query, key) pairs a stripe attends: query i over key rows [i, i + 2w]
+    cut to [w, ...] at the left edge and to [..., w + t_loc - 1] at the right."""
+    kmin, kmax = (w if left else 0), (w + t_loc - 1 if right else t_loc + 2 * w - 1)
+    return sum(min(i + 2 * w, kmax) - max(i, kmin) + 1 for i in range(t_loc))
+
+
+def stripe_key_rows(t_loc, w, left, right):
+    """Haloed key rows a stripe reads: a masked halo is never needed."""
+    return t_loc + 2 * w - (w if left else 0) - (w if right else 0)
+
+
+def _stripe_inputs(gen, n, t_loc, w, dtype, bias=True):
+    """q (pre-scaled), haloed k, v and g of 8 heads x 32, and a (8, 2w+1)
+    f32 bias vector."""
+    import torch
+    q, g = (torch.randn(n, t_loc, 256, device="cuda", generator=gen) for _ in range(2))
+    kx, vx = (torch.randn(n, t_loc + 2 * w, 256, device="cuda", generator=gen)
+              for _ in range(2))
+    vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen) if bias else None
+    return (q * 32 ** -0.5).to(dtype), kx.to(dtype), vx.to(dtype), g.to(dtype), vec
+
+
+def kernel_k5(card, rates):
+    """Phase: K5 against its plain version on edge and interior stripes;
+    stripes of one whole sequence composed on the card against K1 and K3;
+    timings at the 2-rank split of the 128^2 top level."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def plain(q, kx, vx, vec, w, left, right):
+        bias = la.stripe_bias(8, q.shape[1], w, vec, left_edge=left, right_edge=right,
+                              device="cuda")
+        return la.local_attention_packed_stripe_plain(q, kx, vx, bias, 8)
+
+    # the 2- and 4-rank splits of the 128^2 top level at T=200 (N = 32^2
+    # sequences, 8 x 32, w = 40: t_loc 100 and 50), both edges (a forced
+    # single shard of 200 frames), t_loc = w (11), odd t_loc, no bias.
+    # Tolerances as K1's: f32 1e-4, bf16 2e-2 (one ulp of outputs in [2, 4)).
+    cases = [("2-rank rank 0 f32", 1024, 100, 40, f32, True, False, True, 1e-4),
+             ("2-rank rank 1 f32", 1024, 100, 40, f32, False, True, True, 1e-4),
+             ("2-rank rank 0 bf16", 1024, 100, 40, bf16, True, False, True, 2e-2),
+             ("2-rank rank 1 bf16", 1024, 100, 40, bf16, False, True, True, 2e-2),
+             ("4-rank rank 1 interior f32", 1024, 50, 40, f32, False, False, True, 1e-4),
+             ("4-rank rank 2 interior bf16", 1024, 50, 40, bf16, False, False, True, 2e-2),
+             ("4-rank rank 3 bf16", 1024, 50, 40, bf16, False, True, True, 2e-2),
+             ("both edges t_loc=200", 64, 200, 40, f32, True, True, True, 1e-4),
+             ("t_loc=w=11 interior", 64, 11, 11, f32, False, False, True, 1e-4),
+             ("t_loc=13 w=5 left", 64, 13, 5, f32, True, False, True, 1e-4),
+             ("no bias interior", 64, 100, 40, f32, False, False, False, 1e-4)]
+    errs = {}
+    for name, n, t_loc, w, dtype, left, right, bias, tol in cases:
+        q, kx, vx, _, vec = _stripe_inputs(gen, n, t_loc, w, dtype, bias)
+        got = la.local_attention_packed_stripe(q, kx, vx, vec, w, 8, left, right)
+        err = (got.float() - plain(q, kx, vx, vec, w, left, right).float()).abs().max().item()
+        torch.cuda.synchronize()
+        errs[name] = err
+        print(f"kernel K5 {name}: N={n} t_loc={t_loc} keys={t_loc + 2 * w} 8x32 w={w} "
+              f"{str(dtype)[6:]} max_abs_err={err:.3e} tol={tol:g}", flush=True)
+        check(err <= tol and np.isfinite(err), f"K5 {name} error {err} > {tol}")
+        del q, kx, vx, got
+
+    # one whole sequence cut into stripes (halo by slicing, edge flags by
+    # position), K5 on each, against the whole-sequence kernel: the same
+    # terms summed, f32 to 1e-5
+    for t, ranks, w in ((200, 2, 40), (200, 4, 40), (400, 2, 40)):
+        n = 1024
+        q, k, v, _, _ = _stripe_inputs(gen, n, t, 0, f32, bias=False)
+        vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+        t_loc = t // ranks
+        got = torch.cat([la.local_attention_packed_stripe(
+            q[:, r * t_loc:(r + 1) * t_loc].contiguous(), _stripe(k, r, ranks, w),
+            _stripe(v, r, ranks, w), vec, w, 8, r == 0, r == ranks - 1)
+            for r in range(ranks)], dim=1)
+        if t <= la.PACKED_MAX_T:
+            ref, what = la.local_attention_packed(q, k, v, vec, w, 8), "K1"
+        else:
+            split = lambda x: x.view(n, t, 8, 32).transpose(1, 2).contiguous()  # noqa: E731
+            ref = la.local_attention_tiled(split(q), split(k), split(v), vec, w)
+            ref, what = ref.transpose(1, 2).reshape(n, t, 256), "K3"
+        err = (got - ref).abs().max().item()
+        print(f"kernel K5 composed: T={t} over {ranks} stripes of {t_loc} (keys "
+              f"{t_loc + 2 * w}), N={n} f32, against {what} on the whole sequence: "
+              f"max_abs_err={err:.3e} tol=1e-5", flush=True)
+        check(err <= 1e-5, f"K5 composed T={t} x {ranks} error {err}")
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
+
+    n, t_loc, w = 1024, 100, 40                # rank 0 of the 2-rank split
+    q, kx, vx, _, vec = _stripe_inputs(gen, n, t_loc, w, bf16)
+    ms = time_ms(lambda: la.local_attention_packed_stripe(q, kx, vx, vec, w, 8, True, False), 20)
+    plain_ms = time_ms(lambda: plain(q, kx, vx, vec, w, True, False), 5)
+    heads4 = lambda x: x.view(n, x.shape[1], 8, 32).transpose(1, 2).contiguous()  # noqa: E731
+    q4, k4, v4 = heads4(q), heads4(kx), heads4(vx)
+    mask = la.stripe_bias(8, t_loc, w, vec, left_edge=True).to(bf16)[None]   # (1, H, TQ, TK)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0)  # noqa
+    library_ms = time_ms(lib, 20)
+    lib_err = (lib().transpose(1, 2).reshape(n, t_loc, 256).float()
+               - plain(q, kx, vx, vec, w, True, False).float()).abs().max().item()
+    # q read and out written once; k and v only over the rows the left edge
+    # leaves
+    bytes_moved = (2 * q.numel() + 2 * n * stripe_key_rows(t_loc, w, True, False) * 256
+                   ) * 2 + vec.numel() * 4
+    flops = 4 * 32 * stripe_pairs(t_loc, w, True, False) * n * 8
+    bound_ms, bound_by = _bound(bytes_moved, flops, rates)
+    print(f"kernel K5 timing [{card}] 2-rank top-level stripe bf16 (N={n} t_loc={t_loc} keys "
+          f"{t_loc + 2 * w} 8x32 w={w}, rank 0): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (sdpa with the (H, TQ, TK) bias, err {lib_err:.3e}) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+    return dict(max_abs_err=errs["2-rank rank 0 bf16"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def kernel_k6(card, rates):
+    """Phase: K6 against its plain version; stripe gradients composed into
+    the whole sequence's against K2; autograd through LocalAttentionStripe on
+    CUDA tensors; timings at the 2-rank split of the stage-2 top level."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def compare(name, n, t_loc, w, dtype, got, ref):
+        # K2's tolerances: on max|err| / max(1, max|ref|), f32 1e-4; bf16 2e-2
+        # for dq/dk/dv (stored in bf16), 1e-3 for the f32 dvec
+        parts = []
+        for label, a, b in zip(("dq", "dk", "dv", "dvec"), got, ref):
+            if b is None:
+                check(a is None, f"K6 {name}: {label} should be None")
+                continue
+            tol = 1e-3 if label == "dvec" and dtype == bf16 else (
+                2e-2 if dtype == bf16 else 1e-4)
+            err = (a.float() - b.float()).abs().max().item()
+            rel = err / max(1.0, b.float().abs().max().item())
+            parts.append(f"{label} {err:.3e} (rel {rel:.3e}, tol {tol:g})")
+            check(np.isfinite(err) and rel <= tol, f"K6 {name} {label} error {rel} > {tol}")
+        print(f"kernel K6 {name}: N={n} t_loc={t_loc} keys={t_loc + 2 * w} 8x32 w={w} "
+              f"{str(dtype)[6:]} " + ", ".join(parts), flush=True)
+
+    # the stage-2 clip of 40 diffused frames (w = 20) over 2 ranks (t_loc 20,
+    # 60 keys) and an interior rank of 4; both edges (a forced single shard);
+    # the 2-rank sampling stripe (180 keys); t_loc = w; odd t_loc; no bias;
+    # the largest stripe K6 takes (256 keys)
+    cases = [("stage-2 2-rank rank 0 f32", 1024, 20, 20, f32, True, False, True),
+             ("stage-2 2-rank rank 0 bf16", 1024, 20, 20, bf16, True, False, True),
+             ("stage-2 2-rank rank 1 bf16", 1024, 20, 20, bf16, False, True, True),
+             ("4-rank interior f32", 256, 20, 20, f32, False, False, True),
+             ("both edges t_loc=40", 256, 40, 20, f32, True, True, True),
+             ("sampling 2-rank rank 0 f32", 64, 100, 40, f32, True, False, True),
+             ("t_loc=w=11 interior", 64, 11, 11, f32, False, False, True),
+             ("t_loc=13 w=5 right", 64, 13, 5, f32, False, True, True),
+             ("no bias interior", 64, 20, 20, f32, False, False, False),
+             ("256 keys interior", 64, 176, 40, f32, False, False, True)]
+    for name, n, t_loc, w, dtype, left, right, bias in cases:
+        q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, dtype, bias)
+        compare(name, n, t_loc, w, dtype,
+                la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8, left, right),
+                la.local_attention_packed_stripe_bwd_plain(q, kx, vx, g, vec, w, 8, left, right))
+
+    # stripe gradients of one whole sequence: the halo rows' dk, dv added back
+    # to their owners, dvec summed over stripes, against K2 on the whole
+    # sequence; f32, to 1e-5 of each tensor's largest magnitude (the halo
+    # rows' sums add in another order)
+    for t, ranks, w in ((40, 2, 20), (80, 4, 20)):
+        n = 256
+        q, k, v, g, _ = _stripe_inputs(gen, n, t, 0, f32, bias=False)
+        vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+        t_loc = t // ranks
+        dq, dk, dv = (torch.zeros(n, t + 2 * w, 256, device="cuda") for _ in range(3))
+        dvec = torch.zeros_like(vec)
+        for r in range(ranks):
+            rows = slice(r * t_loc, (r + 1) * t_loc)
+            a, b, c, d = la.local_attention_packed_stripe_bwd(
+                q[:, rows].contiguous(), _stripe(k, r, ranks, w), _stripe(v, r, ranks, w),
+                g[:, rows].contiguous(), vec, w, 8, r == 0, r == ranks - 1)
+            dq[:, w + r * t_loc:w + (r + 1) * t_loc] = a
+            dk[:, r * t_loc:r * t_loc + t_loc + 2 * w] += b
+            dv[:, r * t_loc:r * t_loc + t_loc + 2 * w] += c
+            dvec += d
+        got = [x[:, w:w + t] for x in (dq, dk, dv)] + [dvec]
+        ref = la.local_attention_packed_bwd(q, k, v, g, vec, w, 8)
+        errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref)]
+        print(f"kernel K6 composed: T={t} over {ranks} stripes of {t_loc}, N={n} f32, halo "
+              f"gradients added to their owners, against K2 on the whole sequence: dq "
+              f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}, dvec {errs[3]:.3e} of "
+              f"max|ref| (tol 1e-5)", flush=True)
+        check(max(errs) <= 1e-5, f"K6 composed T={t} x {ranks} errors {errs}")
+
+    # a loss through local_attention_packed_stripe on CUDA tensors must reach
+    # q, k, v and the bias vector through K5 forward and K6 backward
+    n, t_loc, w = 64, 20, 20
+    q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, f32)
+    leaves = [x.clone().requires_grad_() for x in (q, kx, vx, vec)]
+    _reset_counts()
+    out = la.local_attention_packed_stripe(*leaves, w, 8, True, False)
+    got = torch.autograd.grad(out, leaves, g)
+    check(_counts() == (0, 0, 0, 0, 1, 1), f"stripe autograd launches (K1-K6) {_counts()}")
+    bias = la.stripe_bias(8, t_loc, w, leaves[3], left_edge=True)
+    ref = torch.autograd.grad(la.local_attention_packed_stripe_plain(*leaves[:3], bias, 8),
+                              leaves, g)
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    print(f"kernel K6 autograd: grad of local_attention_packed_stripe on the card (K5 + K6) "
+          f"vs autograd of the plain version, N={n} t_loc={t_loc} f32, left edge: "
+          f"max_abs_err={err:.3e} tol=1e-4", flush=True)
+    check(err <= 1e-4, f"K6 autograd error {err}")
+
+    n, t_loc, w = 1024, 20, 20                 # rank 0 of the stage-2 2-rank split
+    q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, bf16)
+    ms = time_ms(lambda: la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8, True,
+                                                              False), 20)
+    plain_ms = time_ms(lambda: la.local_attention_packed_stripe_bwd_plain(
+        q, kx, vx, g, vec, w, 8, True, False), 5)
+    heads4 = lambda x: x.view(n, x.shape[1], 8, 32).transpose(1, 2).contiguous()  # noqa: E731
+    q4, k4, v4 = (heads4(x).requires_grad_() for x in (q, kx, vx))
+    mask = la.stripe_bias(8, t_loc, w, vec, left_edge=True).to(bf16)[None]
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), heads4(g),
+                                                     retain_graph=True), 20)
+    # q and g read, dq written; k and v read over the rows the left edge
+    # leaves; dk and dv written over every haloed row; vec read, dvec written
+    bytes_moved = (3 * q.numel() + 2 * n * stripe_key_rows(t_loc, w, True, False) * 256
+                   + 2 * kx.numel()) * 2 + 2 * vec.numel() * 4
+    flops = 10 * 32 * stripe_pairs(t_loc, w, True, False) * n * 8
+    bound_ms, bound_by = _bound(bytes_moved, flops, rates)
+    got = la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8, True, False)
+    ref = la.local_attention_packed_stripe_bwd_plain(q, kx, vx, g, vec, w, 8, True, False)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got[:3], ref[:3]))
+    print(f"kernel K6 timing [{card}] stage-2 2-rank stripe bf16 (N={n} t_loc={t_loc} keys "
+          f"{t_loc + 2 * w} 8x32 w={w}, rank 0): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (sdpa backward with the (H, TQ, TK) bias, dq/dk/dv only) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def seq_sampling(card, mesh):
+    """Phase: the seq sampler on a one-rank NCCL mesh with the stripe
+    forced (halo exchange, K5, the GroupNorm all-reduce and the quantile
+    all-gather through NCCL): f32 parity at T=40 against sample_one_video
+    (K1), then the 200-frame, 20-step bf16 video. Returns the (K1-K6)
+    launches of the 200-frame call."""
+    import torch
+    from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
+    from dawn_tpu_torch.parallel.mesh import gather_frames
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t, steps = 40, 2
+    cfg = FlowDiffusionConfig(sampling_timesteps=steps, dtype=torch.float32)
+    torch.manual_seed(SEED)
+    model = FlowDiffusion(cfg)
+    inp = inputs_for(t, cfg.img_size, SEED + 1)
+    noise = torch.randn((steps + 1, 1, t, cfg.latent_size, cfg.latent_size, 3),
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    _reset_counts()
+    ref = model.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"]
+    ref_launches = _counts()
+    model.unet.seq.force_stripe = True
+    _reset_counts()
+    got = gather_frames(model.make_seq_sampler(mesh)(**inp, noise_seq=noise)["sample_out_vid"],
+                        mesh)
+    launches = _counts()
+    check(ref_launches == (10 * steps, 0, 0, 0, 0, 0) and launches == (0, 0, 0, 0, 10 * steps, 0),
+          f"seq parity launches (K1-K6) {ref_launches} / {launches}")
+    err = (got - ref).abs().max().item()
+    print(f"seq parity: make_seq_sampler on a one-rank NCCL mesh, stripe forced (K5 x "
+          f"{launches[4]}), vs sample_one_video (K1 x {ref_launches[0]}), T={t} steps={steps} "
+          f"f32 full width, same weights and noise, TF32 off: max_abs_err={err:.3e} tol=1e-3",
+          flush=True)
+    check(err <= 1e-3, f"seq parity error {err}")
+    del model, ref, got
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    t = 200
+    torch.manual_seed(SEED)
+    model = FlowDiffusion(FlowDiffusionConfig())
+    model.unet.seq.force_stripe = True
+    sampler = model.make_seq_sampler(mesh)
+    inp = inputs_for(t, 128, SEED + 3)
+
+    def run():
+        out = sampler(**inp, generator=torch.Generator(device="cuda").manual_seed(SEED + 4))
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    vid = run()["sample_out_vid"]
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    check(tuple(vid.shape) == (1, t, 128, 128, 3), f"seq video shape {tuple(vid.shape)}")
+    check(bool(torch.isfinite(vid).all()), "seq video has non-finite values")
+    lo, hi = vid.min().item(), vid.max().item()
+    check(0.0 <= lo and hi <= 1.0, f"seq video range [{lo}, {hi}]")
+    check(launches == (0, 0, 0, 0, 200, 0), f"seq path launches (K1-K6) {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"seq path [{card}]: make_seq_sampler, one-rank NCCL mesh, stripe forced, 128^2 "
+          f"T={t} 20 DDIM steps UNet bf16 LFG f32: video {tuple(vid.shape)} in [{lo:.4f}, "
+          f"{hi:.4f}], launches K5 {launches[4]} (K1 {launches[0]}, K3 {launches[2]}); cold "
+          f"call {cold:.2f} s, warm call {secs:.3f} s = {t / secs:.2f} frames/s, peak memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    profile(run, card, "seq profile")
+    del model, sampler, vid
+    torch.cuda.empty_cache()
+    return launches
+
+
+def seq_training(card, mesh):
+    """Phase: DMTrainer.make_sharded_step on the one-rank NCCL mesh with the
+    stripe forced: f32 parity against the unsharded step on the card, then
+    two full-width bf16 stage-2 steps. Returns the (K1-K6) launches of the
+    stage-2 steps."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # 20 frames, the stage-1 clip: a stripe must hold at least win_width
+    # frames (JAX's assertion), so fewer frames cannot take the stripe
+    b, t, lr = 1, 20, 2e-4
+    cfg = DMTrainConfig(win_width=20, lr=lr)
+    torch.manual_seed(SEED)
+    plain_tr, seq_tr = DMTrainer(cfg), DMTrainer(cfg)
+    for a, c in ((plain_tr.unet, seq_tr.unet), (plain_tr.flow_ae, seq_tr.flow_ae),
+                 (plain_tr.face_loc, seq_tr.face_loc)):
+        c.load_state_dict(a.state_dict())
+    seq_tr.ema = [e.clone() for e in plain_tr.ema]
+    seq_tr.unet.seq.force_stripe = True
+    r = np.random.RandomState(SEED + 9)
+    ls = cfg.latent_size
+    draws = {"t": np.array([371]), "noise": r.randn(b, t, ls, ls, 3).astype(np.float32),
+             "drop": r.rand(b, t) < 0.1,
+             "jitter": {k: torch.tensor([v]) for k, v in (
+                 ("brightness", 1.1), ("contrast", 0.9), ("saturation", 1.2), ("hue", 0.02))}}
+    batch = _train_batch(b, t, cfg.img_size, SEED + 10)
+    before = [p.detach().clone() for p in plain_tr.unet.parameters()]
+    _reset_counts()
+    want = plain_tr.train_step(batch, draws)
+    ref_launches = _counts()
+    _reset_counts()
+    got = seq_tr.make_sharded_step(mesh)(batch, draws)
+    launches = _counts()
+    check(ref_launches == (10, 10, 0, 0, 0, 0) and launches == (0, 0, 0, 0, 10, 10),
+          f"seq train-parity launches (K1-K6) {ref_launches} / {launches}")
+    for k in ("loss", "floss", "mouth_loss", "total"):
+        check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
+              f"seq train-parity {k}: {got[k]} vs {want[k]}")
+    pairs = list(zip(seq_tr.unet.parameters(), plain_tr.unet.parameters(), before))
+    mu = [(seq_tr.optimizer.state[a]["mu"], plain_tr.optimizer.state[c]["mu"])
+          for a, c, _ in pairs]
+    mu_max = max(m.abs().max().item() for _, m in mu)
+    mu_err = max((g - c).abs().max().item() for g, c in mu) / mu_max
+    upd_err = clear_err = 0.0
+    for (a, c, old), (_, m) in zip(pairs, mu):
+        diff = (a.detach() - c.detach()).abs()
+        upd_err = max(upd_err, diff.max().item())
+        clear = m.abs() > 1e-3 * mu_max
+        if clear.any():
+            clear_err = max(clear_err, (diff[clear] - 1e-6 * old[clear].abs()).max().item())
+    print(f"seq train-parity: make_sharded_step on a one-rank NCCL mesh, stripe forced (K5 x "
+          f"{launches[4]}, K6 x {launches[5]}), vs train_step (K1 x {ref_launches[0]}, K2 x "
+          f"{ref_launches[1]}), stage 1 f32 full width bs {b} T={t}, TF32 off: total "
+          f"{got['total']:.6f} vs {want['total']:.6f} (tol 1e-4 rel, every term); grad norm "
+          f"{got['grad_norm']:.5f} vs {want['grad_norm']:.5f}; Adam mu max err {mu_err:.3e} "
+          f"of its max (tol 1e-3); update max err {upd_err:.3e} (tol {2 * lr + 1e-7:.3g}), "
+          f"where |mu| > 1e-3 max {clear_err:.3e} (tol 1e-7)", flush=True)
+    check(mu_err <= 1e-3, f"seq train-parity gradient error {mu_err}")
+    check(upd_err <= 2 * lr + 1e-7 and clear_err <= 1e-7,
+          f"seq train-parity update error {upd_err} / {clear_err}")
+    del plain_tr, seq_tr
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True
+    cfg2 = DMTrainConfig(win_width=20, stage=2, compute_dtype=torch.bfloat16)
+    torch.manual_seed(SEED)
+    trainer = DMTrainer(cfg2)
+    trainer.unet.seq.force_stripe = True
+    step = trainer.make_sharded_step(mesh)
+    batches = [_train_batch(4, 41, 128, SEED + 11 + i) for i in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times, totals = [], []
+    for bt in batches:
+        t0 = time.perf_counter()
+        m = step(bt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        totals.append(m["total"])
+        check(np.isfinite(m["total"]) and m["grads_finite"] == 1.0, "seq train loss not finite")
+    launches = _counts()
+    check(launches == (0, 0, 0, 0, 20, 20), f"seq train launches (K1-K6) {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"seq train path [{card}]: make_sharded_step, one-rank NCCL mesh, stripe forced, "
+          f"stage 2 bs 4 x 40 diffused frames, 128^2 full width bf16, 2 steps: totals "
+          f"{[round(x, 4) for x in totals]}, step times {[round(x, 3) for x in times]} s "
+          f"(warm {times[-1]:.3f} s = {4 / times[-1]:.2f} examples/s), K5 x {launches[4]}, "
+          f"K6 x {launches[5]}, peak memory {peak_gb:.2f} GiB", flush=True)
+    del trainer
     torch.cuda.empty_cache()
     return launches
 
@@ -897,7 +1358,23 @@ def main():
     k4 = phase(kernel_k4, smi, rates)
     grad_t400 = phase(temporal_attention_grad, smi)
     phase(parity, 264)
-    paths = {"sample": sample, "train": train,
+    k5 = phase(kernel_k5, smi, rates)
+    k6 = phase(kernel_k6, smi, rates)
+    # a one-rank NCCL process group through a file store (no network)
+    import tempfile
+    import torch.distributed as dist
+    from dawn_tpu_torch.parallel.mesh import make_mesh
+    store = tempfile.mkdtemp(prefix="dawn_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            world_size=1, rank=0)
+    mesh = make_mesh()
+    seq_sample = phase(seq_sampling, smi, mesh)
+    seq_train = phase(seq_training, smi, mesh)
+    dist.destroy_process_group()
+    shutil.rmtree(store)
+    paths = {"sample": sample, "train": train, "seq_sample": seq_sample,
+             "seq_train": seq_train,
              "sample_T400": phase(video_path, smi, 400, timed=True),
              "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
@@ -907,13 +1384,17 @@ def main():
             ("K2 local_attention_packed_bwd", "local_attention_bwd.cu", 743, k2, "train"),
             ("K3 local_attention_tiled", "local_attention.cu", 116, k3, "sample_T400"),
             ("K4 local_attention_tiled_bwd", "local_attention_tiled_bwd.cu", 876, k4,
-             "temporal_attention_grad_T400")]
+             "temporal_attention_grad_T400"),
+            ("K5 local_attention_packed_stripe", "local_attention.cu", 446, k5, "seq_sample"),
+            ("K6 local_attention_packed_stripe_bwd", "local_attention_bwd.cu", 516, k6,
+             "seq_train")]
     kernels = [{"name": name, "route": "cuda", "source": f"dawn_tpu_torch/csrc/{src}",
                 "replaces": f"dawn_tpu/ops/local_attention.py:{line}",
                 "launches": paths[main_path][i], **measured,
                 "launches_by_path": {p: c[i] for p, c in paths.items()}}
                for i, (name, src, line, measured, main_path) in enumerate(rows)]
     check(train[1] > 0, "K2 never launched on the training path")
+    check(seq_sample[4] > 0 and seq_train[5] > 0, "K5 or K6 never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-// K2: windowed temporal attention, backward, packed (N, T, H*D) layout.
+// K2 and K6: windowed temporal attention, backward, packed (N, T, H*D) layout.
 //
 // Replaces dawn_tpu/ops/local_attention.py::_local_attn_packed_bwd_kernel
 // (the Pallas TPU body launched by _packed_bwd_pallas, the VJP of
@@ -34,10 +34,35 @@
 // dtype, the bias partials in f32. No tensor cores yet (mma/wgmma, TMA and
 // pipelining are later work).
 //
+// K6 replaces the stripe backward (_stripe_bwd_pallas, K2's Pallas body on
+// the rectangular block of local_attention_packed_stripe, the VJP of
+// local_attention_packed_stripe_tpu): the t_loc queries of one rank against
+// its t_loc + 2w haloed keys, query row i seeing key rows [i, i + 2w] with
+// the global-edge flags of K5 (csrc/local_attention.cu). It returns dq (N,
+// t_loc, H*D), dk and dv over the haloed keys (N, t_loc + 2w, H*D), and the
+// bias-vector partials. The TPU kernel returns the raw (H, tq, tk) dS tile
+// and leaves its reduction to the autodiff of the bias construction; the
+// edge masks are constants and masked keys have p = 0, so reducing dS to
+// diagonals here gives the same T5-vector gradient. One block per
+// (sequence, head) stages all t_loc query and t_loc + 2w key rows, so the
+// stripe is limited to t_loc + 2w <= 256 keys, as K2 is to T <= 256. At the
+// stage-2 stripe (N=1024, t_loc=20, t_loc + 2w = 60, 8 x 32, bf16) it moves
+// q, g, dq (10.5 MB each) and k, v, dk, dv (31.5 MB each): 157 MB, about
+// 47 us at 3.35 TB/s.
+//
+// Both run one body: query row i sees the key rows j in
+// [i + key_off - w, i + key_off + w] cut to [kmin, kmax], with the bias
+// entry j - key_off - i + w. K2: t_q = t_k = T, key_off 0, keys [0, T). K6:
+// key_off w, keys [w or 0, w + t_loc - 1 or t_loc + 2w - 1]; the masked key
+// rows get dk = dv = 0.
+//
 // C interface (bound with ctypes):
 //   int dawn_local_attn_packed_bwd(q, k, v, g, bias, dq, dk, dv, dbias_partial,
 //                                  n, t, heads, dim_head, window, is_bf16,
-//                                  stream)
+//                                  stream)                                  K2
+//   int dawn_local_attn_stripe_bwd(q, k, v, g, bias, dq, dk, dv, dbias_partial,
+//                                  n, t_loc, heads, dim_head, window,
+//                                  left_edge, right_edge, is_bf16, stream)   K6
 // bias may be null (no bias: zeros) and dbias_partial may be null (no bias
 // gradient wanted). Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for a shape it was not built for.
@@ -67,54 +92,67 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
+// The key rows a block reads: seq_k rows of which [kmin, kmax] are valid,
+// query row i's band centred on key row i + key_off.
+struct KeyRange {
+  int seq_k, key_off, kmin, kmax;
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kMaxT)
 local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ g,
                              const float* __restrict__ bias, T* __restrict__ dq,
                              T* __restrict__ dk, T* __restrict__ dv,
-                             float* __restrict__ dbias_partial, int seq_len,
+                             float* __restrict__ dbias_partial, int seq_q, KeyRange kr,
                              int heads, int window) {
   extern __shared__ float smem[];
   // rows padded to D+1 floats: the threads of a warp read different rows at
   // the same column, and the padding puts them in distinct banks
   constexpr int kStride = D + 1;
   const int n = blockIdx.x, h = blockIdx.y;
-  const int t = seq_len, nbias = 2 * window + 1;
+  const int tq = seq_q, tk = kr.seq_k, koff = kr.key_off, nbias = 2 * window + 1;
   float* qs = smem;
-  float* ks = qs + t * kStride;
-  float* vs = ks + t * kStride;
-  float* gs = vs + t * kStride;
-  float* row_max = gs + t * kStride;
-  float* row_inv_sum = row_max + t;
-  float* row_delta = row_inv_sum + t;
-  float* bs = row_delta + t;
+  float* gs = qs + tq * kStride;
+  float* ks = gs + tq * kStride;
+  float* vs = ks + tk * kStride;
+  float* row_max = vs + tk * kStride;
+  float* row_inv_sum = row_max + tq;
+  float* row_delta = row_inv_sum + tq;
+  float* bs = row_delta + tq;
 
   const int hd = heads * D;
-  const size_t base = (size_t)n * t * hd + (size_t)h * D;
-  for (int e = threadIdx.x; e < t * D; e += blockDim.x) {
+  const size_t q_base = (size_t)n * tq * hd + (size_t)h * D;
+  const size_t k_base = (size_t)n * tk * hd + (size_t)h * D;
+  for (int e = threadIdx.x; e < tq * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
-    const size_t gi = base + (size_t)r * hd + d;
+    const size_t gi = q_base + (size_t)r * hd + d;
     qs[r * kStride + d] = to_f32(q[gi]);
+    gs[r * kStride + d] = to_f32(g[gi]);
+  }
+  for (int e = threadIdx.x; e < tk * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    const size_t gi = k_base + (size_t)r * hd + d;
     ks[r * kStride + d] = to_f32(k[gi]);
     vs[r * kStride + d] = to_f32(v[gi]);
-    gs[r * kStride + d] = to_f32(g[gi]);
   }
   for (int e = threadIdx.x; e < nbias; e += blockDim.x)
     bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
   __syncthreads();
 
-  // phase 1: query rows -> row statistics and dq
-  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+  // phase 1: query rows -> row statistics and dq; key row j of query row i
+  // has the bias entry j - c + w, c = i + koff
+  for (int i = threadIdx.x; i < tq; i += blockDim.x) {
     const float* qi = qs + i * kStride;
     const float* gi = gs + i * kStride;
-    const int j0 = max(i - window, 0), j1 = min(i + window, t - 1);
+    const int c = i + koff;
+    const int j0 = max(c - window, kr.kmin), j1 = min(c + window, kr.kmax);
     float m = -INFINITY;
     for (int j = j0; j <= j1; ++j)
-      m = fmaxf(m, dot<D>(qi, ks + j * kStride) + bs[j - i + window]);
+      m = fmaxf(m, dot<D>(qi, ks + j * kStride) + bs[j - c + window]);
     float l = 0.f, pdp = 0.f;
     for (int j = j0; j <= j1; ++j) {
-      const float p = expf(dot<D>(qi, ks + j * kStride) + bs[j - i + window] - m);
+      const float p = expf(dot<D>(qi, ks + j * kStride) + bs[j - c + window] - m);
       l += p;
       pdp = fmaf(p, dot<D>(gi, vs + j * kStride), pdp);
     }
@@ -124,7 +162,7 @@ local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < D; ++d) acc[d] = 0.f;
     for (int j = j0; j <= j1; ++j) {
       const float* kj = ks + j * kStride;
-      const float p = expf(dot<D>(qi, kj) + bs[j - i + window] - m) * inv;
+      const float p = expf(dot<D>(qi, kj) + bs[j - c + window] - m) * inv;
       const float ds = p * (dot<D>(gi, vs + j * kStride) - delta);
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kj[d], acc[d]);
@@ -132,24 +170,27 @@ local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_max[i] = m;
     row_inv_sum[i] = inv;
     row_delta[i] = delta;
-    const size_t row = base + (size_t)i * hd;
+    const size_t row = q_base + (size_t)i * hd;
 #pragma unroll
     for (int d = 0; d < D; ++d) dq[row + d] = from_f32<T>(acc[d]);
   }
   __syncthreads();
 
-  // phase 2: key rows -> dk and dv
-  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+  // phase 2: key rows -> dk and dv (a masked key row has no query: zeros)
+  for (int j = threadIdx.x; j < tk; j += blockDim.x) {
     const float* kj = ks + j * kStride;
     const float* vj = vs + j * kStride;
-    const int i0 = max(j - window, 0), i1 = min(j + window, t - 1);
+    const bool valid = j >= kr.kmin && j <= kr.kmax;
+    const int i0 = valid ? max(j - koff - window, 0) : 0;
+    const int i1 = valid ? min(j - koff + window, tq - 1) : -1;
     float dk_acc[D], dv_acc[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
     for (int i = i0; i <= i1; ++i) {
       const float* qi = qs + i * kStride;
       const float* gi = gs + i * kStride;
-      const float p = expf(dot<D>(qi, kj) + bs[j - i + window] - row_max[i]) * row_inv_sum[i];
+      const float p = expf(dot<D>(qi, kj) + bs[j - i - koff + window] - row_max[i]) *
+                      row_inv_sum[i];
       const float ds = p * (dot<D>(gi, vj) - row_delta[i]);
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -157,7 +198,7 @@ local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dv_acc[d] = fmaf(p, gi[d], dv_acc[d]);
       }
     }
-    const size_t row = base + (size_t)j * hd;
+    const size_t row = k_base + (size_t)j * hd;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       dk[row + d] = from_f32<T>(dk_acc[d]);
@@ -166,11 +207,11 @@ local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // phase 3: this block's share of the bias-vector gradient, one diagonal
-  // (key offset r - w) per thread
+  // (key row i + koff + r - w) per thread
   if (dbias_partial == nullptr) return;
   for (int r = threadIdx.x; r < nbias; r += blockDim.x) {
-    const int off = r - window;
-    const int i0 = max(0, -off), i1 = min(t - 1, t - 1 - off);
+    const int off = koff + r - window;
+    const int i0 = max(0, kr.kmin - off), i1 = min(tq - 1, kr.kmax - off);
     float acc = 0.f;
     for (int i = i0; i <= i1; ++i) {
       const float* qi = qs + i * kStride;
@@ -186,21 +227,36 @@ local_attn_packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* bias, void* dq, void* dk, void* dv, void* dbias_partial,
-                   int n, int t, int heads, int window, cudaStream_t stream) {
-  const size_t smem =
-      (4 * (size_t)t * (D + 1) + 3 * (size_t)t + (2 * (size_t)window + 1)) * sizeof(float);
+                   int n, int seq_q, KeyRange kr, int heads, int window,
+                   cudaStream_t stream) {
+  const size_t smem = (2 * ((size_t)seq_q + kr.seq_k) * (D + 1) + 3 * (size_t)seq_q +
+                       (2 * (size_t)window + 1)) * sizeof(float);
   auto kernel = local_attn_packed_bwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int threads = min(kMaxT, (t + 31) / 32 * 32);
+  const int threads = min(kMaxT, (max(seq_q, kr.seq_k) + 31) / 32 * 32);
   const dim3 grid(n, heads);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(bias), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dbias_partial), t,
-      heads, window);
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dbias_partial), seq_q,
+      kr, heads, window);
   return cudaGetLastError();
+}
+
+int launch_any(const void* q, const void* k, const void* v, const void* g, const void* bias,
+               void* dq, void* dk, void* dv, void* dbias_partial, int n, int seq_q,
+               KeyRange kr, int heads, int dim_head, int window, int is_bf16,
+               void* stream) {
+  if (dim_head != 32 || seq_q < 1 || kr.seq_k > kMaxT || window < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, g, bias, dq, dk, dv,
+                                                   dbias_partial, n, seq_q, kr, heads,
+                                                   window, s)
+                       : launch<float, 32>(q, k, v, g, bias, dq, dk, dv, dbias_partial, n,
+                                           seq_q, kr, heads, window, s));
 }
 
 }  // namespace
@@ -210,10 +266,19 @@ extern "C" int dawn_local_attn_packed_bwd(const void* q, const void* k, const vo
                                           void* dk, void* dv, void* dbias_partial, int n,
                                           int t, int heads, int dim_head, int window,
                                           int is_bf16, void* stream) {
-  if (dim_head != 32 || t < 1 || t > kMaxT || window < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, g, bias, dq, dk, dv,
-                                                   dbias_partial, n, t, heads, window, s)
-                       : launch<float, 32>(q, k, v, g, bias, dq, dk, dv, dbias_partial, n,
-                                           t, heads, window, s));
+  return launch_any(q, k, v, g, bias, dq, dk, dv, dbias_partial, n, t,
+                    KeyRange{t, 0, 0, t - 1}, heads, dim_head, window, is_bf16, stream);
+}
+
+extern "C" int dawn_local_attn_stripe_bwd(const void* q, const void* k, const void* v,
+                                          const void* g, const void* bias, void* dq,
+                                          void* dk, void* dv, void* dbias_partial, int n,
+                                          int t_loc, int heads, int dim_head, int window,
+                                          int left_edge, int right_edge, int is_bf16,
+                                          void* stream) {
+  const int seq_k = t_loc + 2 * window;
+  const KeyRange kr{seq_k, window, left_edge ? window : 0,
+                    right_edge ? window + t_loc - 1 : seq_k - 1};
+  return launch_any(q, k, v, g, bias, dq, dk, dv, dbias_partial, n, t_loc, kr, heads,
+                    dim_head, window, is_bf16, stream);
 }

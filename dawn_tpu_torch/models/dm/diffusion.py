@@ -15,6 +15,7 @@ import torch
 
 from dawn_tpu_torch.ops.quantile import quantile_nonneg
 from dawn_tpu_torch.ops.schedule import ddim_times, diffusion_buffers
+from dawn_tpu_torch.parallel.mesh import all_gather_cat
 
 # denoise_fn(x, time, cond, cond_drop_mask) -> eps prediction, all batched
 DenoiseFn = Callable[..., torch.Tensor]
@@ -60,26 +61,29 @@ class GaussianDiffusion:
         return (self._extract("sqrt_recip_alphas_cumprod", t, nd) * x_t
                 - self._extract("sqrt_recipm1_alphas_cumprod", t, nd) * noise)
 
-    def _threshold(self, x0: torch.Tensor) -> torch.Tensor:
+    def _threshold(self, x0: torch.Tensor, group=None) -> torch.Tensor:
         """Dynamic thresholding: per-sample quantile of |x0|, floored at 1,
         then clip to [-s, s] and divide by s. The threshold s carries no
         gradient: the JAX package finds it by a search over bit patterns,
-        which autodiff cannot see through."""
+        which autodiff cannot see through. With ``group`` (the 'seq' ranks
+        of a frame-sharded video) the quantile is the whole video's: the
+        ranks' |x0| are all-gathered first."""
         b = x0.shape[0]
-        s = quantile_nonneg(x0.detach().reshape(b, -1).abs(), DYNAMIC_THRES_PERCENTILE)
+        flat = all_gather_cat(x0.detach().reshape(b, -1).abs(), group, dim=1)
+        s = quantile_nonneg(flat, DYNAMIC_THRES_PERCENTILE)
         s = s.clamp_min(1.0).reshape((b,) + (1,) * (x0.ndim - 1))
         return torch.maximum(torch.minimum(x0, s), -s) / s
 
     def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor, t: torch.Tensor,
                  fea: torch.Tensor, bbox_mask: torch.Tensor, cond: Optional[torch.Tensor],
                  noise: Optional[torch.Tensor] = None, drop: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         """Per-element l2 eps loss. Returns (loss, pred_x0, cond_drop_mask).
 
         x_start: (B, T, h, w, 3); t: (B,) int timesteps; fea: (B, T, h, w,
         256); bbox_mask: (B, T, h, w, 16). ``noise`` and the (B, T) bool
         ``drop`` mask (True: the frame gets the null condition) are drawn
-        from ``generator`` unless given."""
+        from ``generator`` unless given. ``group``: see :meth:`_threshold`."""
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
                                 dtype=x_start.dtype)
@@ -90,7 +94,7 @@ class GaussianDiffusion:
                               device=x_start.device) < self.null_cond_prob
         pred_noise = denoise_fn(inp, t, cond, drop)
         loss = (noise - pred_noise).square()
-        pred_x0 = self._threshold(self.predict_start_from_noise(x_noisy, t, pred_noise))
+        pred_x0 = self._threshold(self.predict_start_from_noise(x_noisy, t, pred_noise), group)
         return loss, pred_x0, drop
 
     def _cfg_eps(self, denoise_fn: DenoiseFn, inp, tvec, cond, cond_scale: float):
@@ -106,14 +110,20 @@ class GaussianDiffusion:
                     cond: Optional[torch.Tensor], cond_scale: float = 1.0,
                     noise_seq: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
-                    device=None) -> torch.Tensor:
+                    device=None, view: Tuple = (), group=None) -> torch.Tensor:
         """DDIM sampling. ``noise_seq`` optionally supplies (steps+1, *shape)
         gaussians (index 0 = x_T, then one per step) for reproducible parity;
-        otherwise noise is drawn from ``generator`` on ``device``."""
+        otherwise noise is drawn from ``generator`` on ``device``.
+
+        A rank of a sharded sampler passes the whole batch's ``shape`` and
+        its own part as ``view`` (an index, e.g. (rows, frames)): every
+        gaussian is drawn at ``shape`` and cut to ``view``, so the ranks
+        together use the noise of one unsharded call, and the denoiser sees
+        the rank's part only. ``group``: see :meth:`_threshold`."""
         def normal(i):
             if noise_seq is not None:
-                return noise_seq[i].to(device)
-            return torch.randn(shape, generator=generator, device=device)
+                return noise_seq[i][view].to(device)
+            return torch.randn(shape, generator=generator, device=device)[view]
 
         acp = self.bufs["alphas_cumprod_prev"]
         eta = torch.tensor(self.ddim_sampling_eta, dtype=torch.float32)
@@ -121,9 +131,10 @@ class GaussianDiffusion:
         for i, (time, time_next) in enumerate(ddim_times(self.timesteps,
                                                          self.sampling_timesteps)):
             alpha, alpha_next = acp[time], acp[time_next]
-            tvec = torch.full((shape[0],), time, dtype=torch.int64, device=device)
+            tvec = torch.full((img.shape[0],), time, dtype=torch.int64, device=device)
             pred_noise = self._cfg_eps(denoise_fn, img, tvec, cond, cond_scale)
-            x_start = self._threshold(self.predict_start_from_noise(img, tvec, pred_noise))
+            x_start = self._threshold(self.predict_start_from_noise(img, tvec, pred_noise),
+                                      group)
             sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
                                      / (1 - alpha))
             c = torch.sqrt(torch.clamp((1 - alpha_next) - sigma ** 2, min=0.0))
@@ -133,8 +144,9 @@ class GaussianDiffusion:
         return img
 
     def sample(self, denoise_fn: DenoiseFn, shape, cond=None, cond_scale: float = 1.0,
-               noise_seq=None, generator=None, device=None) -> torch.Tensor:
+               noise_seq=None, generator=None, device=None, view: Tuple = (),
+               group=None) -> torch.Tensor:
         if self.sampling_timesteps >= self.timesteps:
             raise NotImplementedError("the ancestral p_sample_loop is not ported yet")
         return self.ddim_sample(denoise_fn, shape, cond, cond_scale, noise_seq,
-                                generator, device)
+                                generator, device, view, group)

@@ -9,6 +9,13 @@ LFG flow-warp pass (or in chunks of ``lfg_decode_chunk`` frames).
 
 Inputs and outputs keep the JAX package's channels-last layouts. The model
 lives on the card unless the caller passes ``device="cpu"``.
+
+Across processes (:mod:`dawn_tpu_torch.parallel`): ``make_batch_sampler``
+splits a batch of identities over the mesh's 'data' ranks and
+``make_seq_sampler`` the frames of one video over its 'seq' ranks. Every
+rank receives the whole inputs and keeps its own part; the noise is drawn at
+the whole batch's shape from the same seed and cut, so the ranks' parts
+together are the video of one unsharded call.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dawn_tpu_torch.models.dm.diffusion import GaussianDiffusion
 from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.models.lfg.blocks import conv
 from dawn_tpu_torch.models.lfg.generator import LFGGenerator
+from dawn_tpu_torch.parallel.mesh import Mesh
 
 
 class FaceLocEncoder(nn.Module):
@@ -118,7 +126,6 @@ class FlowDiffusion(nn.Module):
         return torch.cat([audio_hubert, pose - init_pose_b, eye - init_eye[:, None]],
                          dim=-1)
 
-    @torch.no_grad()
     def sample_one_video(self, sample_img: torch.Tensor, audio_hubert: torch.Tensor,
                          pose: torch.Tensor, eye: torch.Tensor, bbox: torch.Tensor,
                          init_pose: Optional[torch.Tensor] = None,
@@ -135,14 +142,57 @@ class FlowDiffusion(nn.Module):
         ((steps+1, B, T, h, w, 3)) when given, else from ``generator``.
         Returns (B, T, ...) 'sample_vid_grid', 'sample_vid_conf',
         'sample_out_vid' and 'sample_warped_vid'."""
+        return self._sample(sample_img, audio_hubert, pose, eye, bbox, init_pose, init_eye,
+                            cond_scale, noise_seq, generator)
+
+    def make_batch_sampler(self, mesh: Mesh, cond_scale: float = 1.0):
+        """Multi-identity sampler with the batch over the mesh's 'data' axis
+        (``dawn_tpu/models/dm/flow_diffusion.py:257-275``). Returns a
+        callable with ``sample_one_video``'s inputs, each of the whole batch;
+        it returns this rank's rows ((B / data, T, ...) leaves; the whole
+        batch with :func:`dawn_tpu_torch.parallel.mesh.gather_rows`)."""
+        def sampler(sample_img, audio_hubert, pose, eye, bbox, init_pose=None,
+                    init_eye=None, noise_seq=None, generator=None):
+            return self._sample(sample_img, audio_hubert, pose, eye, bbox, init_pose,
+                                init_eye, cond_scale, noise_seq, generator,
+                                rows=mesh.rows(audio_hubert.shape[0]))
+        return sampler
+
+    def make_seq_sampler(self, mesh: Mesh, cond_scale: float = 1.0):
+        """Sequence-parallel sampler of one video with the frame axis over
+        the mesh's 'seq' axis (``dawn_tpu/models/dm/flow_diffusion.py:
+        277-322``): the UNet runs sharded (:meth:`Unet3D.sharded_over`: halo
+        exchange and K5 in every temporal attention, the GroupNorm and
+        dynamic-thresholding statistics over the whole video), the decode
+        runs on the rank's frames. T must divide over the 'seq' ranks and
+        T / ranks must cover win_width. Returns a callable with
+        ``sample_one_video``'s inputs, each of the whole video; it returns
+        this rank's frames ((B, T / seq, ...) leaves; the whole video with
+        :func:`dawn_tpu_torch.parallel.mesh.gather_frames`)."""
+        def sampler(sample_img, audio_hubert, pose, eye, bbox, init_pose=None,
+                    init_eye=None, noise_seq=None, generator=None):
+            return self._sample(sample_img, audio_hubert, pose, eye, bbox, init_pose,
+                                init_eye, cond_scale, noise_seq, generator, seq_mesh=mesh)
+        return sampler
+
+    @torch.no_grad()
+    def _sample(self, sample_img, audio_hubert, pose, eye, bbox, init_pose, init_eye,
+                cond_scale, noise_seq, generator, rows: slice = slice(None),
+                seq_mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        """sample_one_video on the batch rows ``rows`` and, with
+        ``seq_mesh``, on this rank's frames of them; the condition's
+        reference (frame 0) and the noise are those of the whole inputs."""
         cfg, dev = self.config, self.device
+        b_all, t_all = audio_hubert.shape[:2]
         sample_img, audio_hubert, pose, eye, bbox = (
-            z.to(dev, torch.float32) for z in (sample_img, audio_hubert, pose, eye, bbox))
-        b, t = audio_hubert.shape[:2]
+            z.to(dev, torch.float32)[rows] for z in (sample_img, audio_hubert, pose, eye, bbox))
+        b = audio_hubert.shape[0]
         ls = cfg.latent_size
-        init_pose = pose[:, 0] if init_pose is None else init_pose.to(dev, torch.float32)
-        init_eye = eye[:, 0] if init_eye is None else init_eye.to(dev, torch.float32)
-        cond = self.build_condition(audio_hubert, pose, eye, init_pose, init_eye)
+        init_pose = pose[:, 0] if init_pose is None else init_pose.to(dev, torch.float32)[rows]
+        init_eye = eye[:, 0] if init_eye is None else init_eye.to(dev, torch.float32)[rows]
+        frames = seq_mesh.frames(t_all) if seq_mesh is not None else slice(None)
+        cond = self.build_condition(audio_hubert, pose, eye, init_pose, init_eye)[:, frames]
+        t = cond.shape[1]
 
         fea = self.generator.compute_fea(sample_img)                   # (B, ls, ls, 256)
         mask_emb = self.face_loc(generate_bbox_mask(bbox, cfg.img_size))  # (B, ls, ls, 16)
@@ -154,8 +204,10 @@ class FlowDiffusion(nn.Module):
         def denoise(x, tvec, c, drop):
             return self.unet(x, tvec, c, drop, static_feat=static)
 
-        pred = self.diffusion.sample(denoise, (b, t, ls, ls, 3), cond, cond_scale,
-                                     noise_seq, generator, dev)
+        with self.unet.sharded_over(seq_mesh):
+            pred = self.diffusion.sample(denoise, (b_all, t_all, ls, ls, 3), cond, cond_scale,
+                                         noise_seq, generator, dev, view=(rows, frames),
+                                         group=self.unet.seq.group())
         grid = pred[..., :2]
         conf = (pred[..., 2:3] + 1.0) * 0.5
         ck = cfg.lfg_decode_chunk if cfg.lfg_decode_chunk else t

@@ -21,10 +21,21 @@ version on the CPU. With grad on it is the autograd Function
 K1 and one K2 per temporal attention. Longer videos take the JAX package's
 split-heads route to :func:`dawn_tpu_torch.ops.local_attention.local_attention`:
 K3 on the card (backward K4), the banded form on the CPU.
+
+Sequence parallelism (``seq_mesh``, or :meth:`Unet3D.sharded_over`): each
+rank of the mesh's 'seq' axis holds its own frames of the video. Everything
+frame by frame runs as before; the video-wide GroupNorm statistics are
+all-reduced over the 'seq' ranks, and every temporal attention, in either
+attention mode, takes the JAX package's seq route
+(``dawn_tpu/models/dm/unet3d.py:512-530``): the packed layout, rotary at the
+global frame positions, then
+:func:`dawn_tpu_torch.ops.local_attention.seq_sharded_local_attention`
+(halo exchange, K5 forward, K6 backward).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -35,6 +46,7 @@ from torch import nn
 from dawn_tpu_torch.ops.convs import conv2d_nhwc, conv_transpose2d_nhwc
 from dawn_tpu_torch.ops.local_attention import (PACKED_MAX_T, local_attention,
                                                 local_attention_packed,
+                                                seq_sharded_local_attention,
                                                 windowed_full_attention)
 from dawn_tpu_torch.ops.norms import channel_layer_norm, video_group_norm
 from dawn_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
@@ -56,6 +68,32 @@ def frame_conv(x: torch.Tensor, conv: nn.Conv3d, dtype) -> torch.Tensor:
                     conv.weight[:, :, 0].to(dtype), bias,
                     stride=conv.stride[1], padding=conv.padding[1])
     return y.reshape(b, t, *y.shape[1:])
+
+
+class SeqParallel:
+    """The sequence-parallel state one Unet3D shares with its GroupNorms and
+    temporal attentions: the mesh whose 'seq' axis shards the frames (None:
+    not sharded), and ``force_stripe``.
+
+    ``force_stripe`` is a verification hook, not a user feature: it passes
+    the JAX package's ``force_stripe`` to every temporal attention, so that
+    a mesh of one rank still runs the halo exchange and the stripe kernels,
+    the program of an edge rank (``dawn_tpu/ops/local_attention.py:654-661``).
+    Only ``chip_smoke.py`` and the tests set it."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.force_stripe = False
+
+    @property
+    def active(self) -> bool:
+        """True when the seq route is taken: a 'seq' axis of more than one
+        rank, or a forced stripe on any mesh."""
+        return self.mesh is not None and (self.mesh.shape["seq"] > 1 or self.force_stripe)
+
+    def group(self):
+        """The 'seq' process group of the video-wide reductions, when active."""
+        return self.mesh.group("seq") if self.active else None
 
 
 def l2norm(x: torch.Tensor) -> torch.Tensor:
@@ -136,16 +174,17 @@ class ToTokens(nn.Module):
 class Block(nn.Module):
     """Per-frame conv(1,3,3) + video-wide GroupNorm + time scale/shift + SiLU."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int, dtype):
+    def __init__(self, dim: int, dim_out: int, groups: int, dtype, seq: SeqParallel):
         super().__init__()
         self.proj = nn.Conv3d(dim, dim_out, (1, 3, 3), padding=(0, 1, 1))
         self.norm = nn.GroupNorm(groups, dim_out)
         self.dtype = dtype
+        self.seq = seq
 
     def forward(self, x, scale_shift=None):
         y = frame_conv(x, self.proj, self.dtype)
         y = video_group_norm(y, self.norm.num_groups, self.norm.weight,
-                             self.norm.bias, self.norm.eps)
+                             self.norm.bias, self.norm.eps, self.seq.group())
         if scale_shift is not None:
             scale, shift = scale_shift
             y = y * (scale.to(y.dtype) + 1.0) + shift.to(y.dtype)
@@ -194,7 +233,7 @@ class ResnetBlockCaMul(nn.Module):
     aud+pose+eye) splits into three tokens, each through SiLU + Linear, each
     cross-attended by the frame's spatial tokens; the sum adds onto block1."""
 
-    def __init__(self, dim: int, dim_out: int, dtype, time_emb_dim=None,
+    def __init__(self, dim: int, dim_out: int, dtype, seq: SeqParallel, time_emb_dim=None,
                  cond_aud=None, cond_pose=None, cond_eye=None, groups: int = 8):
         super().__init__()
         self.dtype = dtype
@@ -209,8 +248,8 @@ class ResnetBlockCaMul(nn.Module):
             self.cross_attn_aud = CondCrossAttention(dim, dim_out * 2, dim_out, dtype)
             self.cross_attn_pose = CondCrossAttention(dim, dim_out * 2, dim_out, dtype)
             self.cross_attn_eye = CondCrossAttention(dim, dim_out * 2, dim_out, dtype)
-        self.block1 = Block(dim, dim_out, groups, dtype)
-        self.block2 = Block(dim_out, dim_out, groups, dtype)
+        self.block1 = Block(dim, dim_out, groups, dtype, seq)
+        self.block2 = Block(dim_out, dim_out, groups, dtype, seq)
         self.res_conv = nn.Conv3d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, time_emb=None, cond=None):
@@ -287,16 +326,19 @@ class TemporalAttention(nn.Module):
     (B*S, T, H*D) layout for T <= 256 and :func:`local_attention` (K3) on
     the split-heads (B*S, H, T, D) layout above that, as the JAX module
     does; 'full' runs the windowed-full (T, T) form with the caller's
-    (1, 1, H, T, T) bias. All compute the same function."""
+    (1, 1, H, T, T) bias. When ``seq`` is active, T is this rank's frames
+    and :func:`seq_sharded_local_attention` runs in either mode. All compute
+    the same function."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mode: str, window: int,
-                 dtype):
+                 dtype, seq: Optional[SeqParallel] = None):
         super().__init__()
         if mode not in ("local", "full"):
             raise ValueError(f"attn_mode must be 'local' or 'full', got {mode!r}")
         hidden = heads * dim_head
         self.heads, self.dim_head, self.mode, self.window, self.dtype = (
             heads, dim_head, mode, window, dtype)
+        self.seq = seq or SeqParallel()
         self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
         self.to_out = nn.Linear(hidden, dim, bias=False)
 
@@ -304,6 +346,19 @@ class TemporalAttention(nn.Module):
         b, s, t, _ = x.shape
         nh, d = self.heads, self.dim_head
         qkv = linear(x, self.to_qkv, self.dtype).reshape(b * s, t, 3, nh, d)
+        if self.seq.active:
+            # packed layout, rotary at the global frame positions
+            # (dawn_tpu/models/dm/unet3d.py:512-530)
+            mesh = self.seq.mesh
+            cos, sin = rotary_cos_sin(t, min(32, d), dtype=qkv.dtype, device=x.device,
+                                      offset=mesh.index("seq") * t)
+            cos, sin = cos[:, None], sin[:, None]
+            q, k, v = (z.reshape(b * s, t, nh * d).contiguous() for z in (
+                apply_rotary(qkv[:, :, 0] * d ** -0.5, cos, sin),
+                apply_rotary(qkv[:, :, 1], cos, sin), qkv[:, :, 2]))
+            out = seq_sharded_local_attention(q, k, v, bias_vec, self.window, nh, mesh,
+                                              force_stripe=self.seq.force_stripe)
+            return linear(out.reshape(b, s, t, nh * d), self.to_out, self.dtype)
         cos, sin = rotary_cos_sin(t, min(32, d), dtype=qkv.dtype, device=x.device)
         if self.mode == "local" and t > PACKED_MAX_T:
             # split heads, scale q, rotate, attend (dawn_tpu/models/dm/unet3d.py:566-589)
@@ -351,18 +406,17 @@ class Unet3D(nn.Module):
         super().__init__()
         if fuse_cond:
             raise NotImplementedError("fuse_cond=True is not ported yet")
-        if seq_mesh is not None:
-            raise NotImplementedError("sequence parallelism (seq_mesh) is not ported yet")
         self.dim, self.attn_mode, self.win_width, self.dtype = dim, attn_mode, win_width, dtype
         self.attn_heads = attn_heads
+        self.seq = seq = SeqParallel(seq_mesh)
         heads, dh = attn_heads, attn_dim_head
         time_dim = dim * 4
-        cond_kw = dict(time_emb_dim=time_dim, cond_aud=cond_aud, cond_pose=cond_pose,
+        cond_kw = dict(seq=seq, time_emb_dim=time_dim, cond_aud=cond_aud, cond_pose=cond_pose,
                        cond_eye=cond_eye, groups=resnet_groups)
 
         def temporal(d):
             return Residual(PreNorm(d, ToTokens(
-                TemporalAttention(d, heads, dh, attn_mode, win_width, dtype), "time")))
+                TemporalAttention(d, heads, dh, attn_mode, win_width, dtype, seq), "time")))
 
         self.time_rel_pos_bias = RelativePositionBias(heads, bias_num_buckets,
                                                       bias_max_distance)
@@ -389,7 +443,7 @@ class Unet3D(nn.Module):
         mid = dims[-1]
         self.mid_block1 = ResnetBlockCaMul(mid, mid, dtype, **cond_kw)
         self.mid_spatial_attn = Residual(PreNorm(mid, ToTokens(
-            SpatialFullAttention(mid, dtype, heads, dh), "space")))
+            SpatialFullAttention(mid, dtype, heads), "space")))  # dim_head 32, as JAX
         self.mid_temporal_attn = temporal(mid)
         self.mid_block2 = ResnetBlockCaMul(mid, mid, dtype, **cond_kw)
         for ind, (d_in, d_out) in enumerate(reversed(in_out)):
@@ -403,11 +457,24 @@ class Unet3D(nn.Module):
                 if not is_last else nn.Identity(),
             ]))
         self.final_conv = nn.Sequential(
-            ResnetBlockCaMul(dim * 2, dim, dtype, groups=resnet_groups),
+            ResnetBlockCaMul(dim * 2, dim, dtype, seq, groups=resnet_groups),
             nn.Conv3d(dim, out_grid_dim, 1))
         self.occlusion_map = nn.Sequential(
-            ResnetBlockCaMul(dim * 2, dim, dtype, groups=resnet_groups),
+            ResnetBlockCaMul(dim * 2, dim, dtype, seq, groups=resnet_groups),
             nn.Conv3d(dim, out_conf_dim, 1))
+
+    @contextlib.contextmanager
+    def sharded_over(self, mesh):
+        """For the duration, the frame axis of every call is sharded over
+        ``mesh``'s 'seq' axis (JAX's ``unet.clone(seq_mesh=mesh)``); None
+        leaves the UNet as it is."""
+        old = self.seq.mesh
+        if mesh is not None:
+            self.seq.mesh = mesh
+        try:
+            yield self
+        finally:
+            self.seq.mesh = old
 
     def _init_conv(self, x: torch.Tensor, channels: slice, with_bias: bool):
         """init_conv restricted to some input channels (it is linear in them)."""
@@ -446,7 +513,7 @@ class Unet3D(nn.Module):
         rpb = self.time_rel_pos_bias
         emb = rpb.relative_attention_bias.weight
         pos_bias = bias_vec = None
-        if self.attn_mode == "local":
+        if self.attn_mode == "local" or self.seq.active:
             bias_vec = t5_bias_windowed_vector(emb, self.win_width, rpb.num_buckets,
                                                rpb.max_distance)
         else:

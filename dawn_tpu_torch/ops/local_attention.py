@@ -26,6 +26,19 @@ Softmax and accumulation run in f32; the output has the input dtype.
   ``csrc/local_attention_tiled_bwd.cu``, plain version
   :func:`local_attention_tiled_bwd_plain`). A CPU tensor goes to
   :func:`local_attention_banded`.
+- :func:`seq_sharded_local_attention`: the attention of one rank's frames
+  when the frame axis is sharded over the 'seq' axis of a
+  :class:`dawn_tpu_torch.parallel.mesh.Mesh`: the +-w halo of k and v is
+  exchanged with the neighbour ranks, then K5
+  (:func:`local_attention_packed_stripe`, a third C entry in
+  ``csrc/local_attention.cu``) attends the rank's t_loc queries over its
+  t_loc + 2w haloed keys, with the global edges masked by two flags. Its
+  plain version, :func:`local_attention_packed_stripe_plain`, takes the
+  JAX package's full (H, tq, tk) bias (:func:`stripe_bias`). With grad on,
+  the stripe goes through :class:`LocalAttentionStripe`, whose backward is
+  K6 (:func:`local_attention_packed_stripe_bwd`, a second C entry in
+  ``csrc/local_attention_bwd.cu``), and the halo exchange's backward sends
+  the halo rows' gradients back to their owners.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 NEG_INF = -1e9
 PACKED_MAX_T = 256       # K1 covers T <= 256 (the TPU kernel's range)
@@ -491,3 +505,327 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             x is not None and x.requires_grad for x in (q, k, v, bias_vec)):
         return LocalAttentionTiled.apply(q, k, v, bias_vec, window)
     return local_attention_tiled(q, k, v, bias_vec, window)
+
+
+# --------------------------------------------------------------------------
+# Sequence parallelism: the stripe kernels K5 (forward) and K6 (backward)
+
+
+def stripe_bias(heads: int, t_loc: int, window: int, bias_vec: Optional[torch.Tensor],
+                tq: Optional[int] = None, tk: Optional[int] = None, left_edge: bool = False,
+                right_edge: bool = False, device=None) -> torch.Tensor:
+    """(heads, tq, tk) f32 bias of a haloed key stripe, as the JAX package
+    builds it (``_stripe_bias`` plus the global-edge masks,
+    ``dawn_tpu/ops/local_attention.py:612-627, 691-697``): key column j
+    sits at offset (j - w) - i from query row i; the T5 bias in the window,
+    NEG_INF outside it, beyond the stripe (j >= t_loc + 2w) and on padded
+    query rows (i >= t_loc); NEG_INF is added on the left halo (j < w) at
+    the first rank and on the right halo (w + t_loc <= j < t_loc + 2w) at
+    the last. tq and tk default to t_loc and t_loc + 2w."""
+    tq = t_loc if tq is None else tq
+    tk = t_loc + 2 * window if tk is None else tk
+    ii = np.arange(tq)[:, None]
+    jj = np.arange(tk)[None, :]
+    rel = (jj - window) - ii
+    ok = (np.abs(rel) <= window) & (jj < t_loc + 2 * window) & (ii < t_loc)
+    mask = np.where(ok, 0.0, NEG_INF)
+    if left_edge:
+        mask = mask + np.where(jj < window, NEG_INF, 0.0)
+    if right_edge:
+        mask = mask + np.where((jj >= window + t_loc) & (jj < t_loc + 2 * window), NEG_INF, 0.0)
+    if bias_vec is not None:
+        device = bias_vec.device
+    mask = torch.from_numpy(mask.astype(np.float32)).to(device)
+    if bias_vec is None:
+        return mask[None].expand(heads, tq, tk)
+    idx = torch.from_numpy(np.clip(rel + window, 0, 2 * window)).to(device)
+    return bias_vec.float()[:, idx] + mask[None]
+
+
+def local_attention_packed_stripe_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        bias: torch.Tensor, heads: int) -> torch.Tensor:
+    """K5's function in plain PyTorch, the counterpart of the JAX package's
+    ``_stripe_attn_einsum``: q (N, TQ, H*D) over the haloed keys k, v (N, TK,
+    H*D) with the caller's (H, >= TQ, >= TK) bias (cut to (TQ, TK)).
+    Scores, softmax and p.v in f32, as in the kernel (JAX rounds p to v's
+    dtype, which is the same for f32 inputs); returns q's dtype."""
+    n, t_q, hd = q.shape
+    t_k = k.shape[1]
+    d = hd // heads
+
+    def split(x, t):
+        return x.float().reshape(n, t, heads, d).transpose(1, 2)   # (n, h, t, d)
+
+    s = split(q, t_q) @ split(k, t_k).transpose(-1, -2) + bias[None, :, :t_q, :t_k]
+    p = torch.softmax(s, dim=-1)
+    return (p @ split(v, t_k)).transpose(1, 2).reshape(n, t_q, hd).to(q.dtype)
+
+
+def local_attention_packed_stripe_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                            v: torch.Tensor, g: torch.Tensor,
+                                            bias_vec: Optional[torch.Tensor], window: int,
+                                            heads: int, left_edge: bool, right_edge: bool):
+    """K6's function in plain PyTorch: the gradients of the stripe attention
+    (q (N, t_loc, H*D) over the haloed k, v (N, t_loc + 2w, H*D), the bias of
+    :func:`stripe_bias` with the given edge flags) with respect to q, k, v
+    and the f32 bias vector, given the output gradient ``g``. dvec[h, r] is
+    the sum of dS over the entries at key offset r - w; the JAX package gets
+    the same from the autodiff of its bias construction. Returns (dq, dk, dv)
+    in the input dtype and dvec ((H, 2w+1) f32, or None without a bias)."""
+    n, t_loc, hd = q.shape
+    t_k = k.shape[1]
+    d = hd // heads
+
+    def split(x, t):
+        return x.float().reshape(n, t, heads, d).transpose(1, 2)   # (n, h, t, d)
+
+    def merge(x, t):
+        return x.transpose(1, 2).reshape(n, t, hd).to(q.dtype)
+
+    qs, gs = split(q, t_loc), split(g, t_loc)
+    ks, vs = split(k, t_k), split(v, t_k)
+    bias = stripe_bias(heads, t_loc, window, bias_vec, left_edge=left_edge,
+                       right_edge=right_edge, device=q.device)
+    p = torch.softmax(qs @ ks.transpose(-1, -2) + bias, dim=-1)
+    dp = gs @ vs.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq, dk, dv = ds @ ks, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ gs
+    dvec = None
+    if bias_vec is not None:
+        rel = (np.arange(t_k)[None, :] - window) - np.arange(t_loc)[:, None]
+        onehot = torch.from_numpy((rel[None] == np.arange(-window, window + 1)[:, None, None])
+                                  .astype(np.float32)).to(q.device)   # (2w+1, t_loc, t_k)
+        dvec = torch.einsum("hij,rij->hr", ds.sum(dim=0), onehot)
+    return merge(dq, t_loc), merge(dk, t_k), merge(dv, t_k), dvec
+
+
+def _check_stripe_inputs(what: str, q, kx, vx, g, bias_vec, window: int, heads: int,
+                         max_tk: Optional[int] = None) -> None:
+    """Raise on what K5/K6 do not take (the checks of the whole-sequence
+    kernels, on the query side and the key side), on keys that are not the
+    queries' t_loc + 2w haloed rows, and on more than ``max_tk`` keys."""
+    n, t_loc, hd = q.shape
+    want = (n, t_loc + 2 * window, hd)
+    if tuple(kx.shape) != want:
+        raise ValueError(f"{what}: haloed keys must be {want} for q {tuple(q.shape)} "
+                         f"and window {window}, got {tuple(kx.shape)}")
+    if max_tk is not None and want[1] > max_tk:
+        raise ValueError(
+            f"{what} covers stripes of t_loc + 2w <= {max_tk} keys (one block per "
+            f"(sequence, head) holds them all), got {want[1]}: a tiled K6 is open work")
+    if kx.dtype != q.dtype or kx.device != q.device:
+        raise ValueError(f"{what}: keys {kx.dtype} {kx.device} do not match q "
+                         f"{q.dtype} {q.device}")
+    dim_head = _packed_dim_head(q, heads)
+    q_side = (("g", g),) if g is not None else ()
+    _check_kernel_inputs(what, q, q_side, bias_vec, window, heads, dim_head)
+    _check_kernel_inputs(what, kx, (("v", vx),), None, window, heads, dim_head)
+
+
+def _stripe_forward(q, kx, vx, bias_vec, window: int, heads: int, left_edge: bool,
+                    right_edge: bool) -> torch.Tensor:
+    """K5 on a CUDA tensor (counted in ``local_attention_packed_stripe.launches``),
+    the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        bias = stripe_bias(heads, q.shape[1], window, bias_vec, left_edge=left_edge,
+                           right_edge=right_edge)
+        return local_attention_packed_stripe_plain(q, kx, vx, bias, heads)
+    _check_stripe_inputs("K5", q, kx, vx, None, bias_vec, window, heads)
+    n, t_loc, hd = q.shape
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _library("local_attention", "dawn_local_attn_stripe_fwd",
+                   (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dawn_local_attn_stripe_fwd(
+            q.data_ptr(), kx.data_ptr(), vx.data_ptr(),
+            bias_vec.data_ptr() if bias_vec is not None else None, out.data_ptr(),
+            n, t_loc, heads, hd // heads, window, int(left_edge), int(right_edge),
+            _DTYPE_FLAG[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 launch failed: cudaError {rc}")
+    local_attention_packed_stripe.launches += 1
+    return out
+
+
+def local_attention_packed_stripe_bwd(q: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor,
+                                      g: torch.Tensor, bias_vec: Optional[torch.Tensor],
+                                      window: int, heads: int, left_edge: bool,
+                                      right_edge: bool):
+    """K6: the backward of K5; returns (dq, dk, dv, dvec) as
+    :func:`local_attention_packed_stripe_bwd_plain` does, dk and dv over the
+    haloed keys.
+
+    A CUDA tensor launches ``dawn_local_attn_stripe_bwd`` in
+    ``csrc/local_attention_bwd.cu`` (t_loc + 2w <= 256 keys, D = 32, f32 or
+    bf16, contiguous inputs) or raises; a CPU tensor takes the plain
+    version. The kernel writes one (2w+1) bias partial per (sequence, head),
+    summed here over sequences in a fixed order. Its ``launches`` attribute
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return local_attention_packed_stripe_bwd_plain(q, kx, vx, g, bias_vec, window, heads,
+                                                       left_edge, right_edge)
+    _check_stripe_inputs("K6", q, kx, vx, g, bias_vec, window, heads, PACKED_MAX_T)
+    n, t_loc, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kx), torch.empty_like(vx)
+    partial = (torch.empty((n, heads, 2 * window + 1), dtype=torch.float32, device=q.device)
+               if bias_vec is not None else None)
+    if q.numel() == 0:
+        return dq, dk, dv, (None if partial is None else torch.zeros_like(bias_vec))
+    lib = _library("local_attention_bwd", "dawn_local_attn_stripe_bwd",
+                   (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dawn_local_attn_stripe_bwd(
+            q.data_ptr(), kx.data_ptr(), vx.data_ptr(), g.data_ptr(),
+            bias_vec.data_ptr() if bias_vec is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            n, t_loc, heads, hd // heads, window, int(left_edge), int(right_edge),
+            _DTYPE_FLAG[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 launch failed: cudaError {rc}")
+    local_attention_packed_stripe_bwd.launches += 1
+    return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+
+
+local_attention_packed_stripe_bwd.launches = 0
+
+
+class LocalAttentionStripe(torch.autograd.Function):
+    """Differentiable stripe attention: forward K5, backward K6 (their plain
+    versions on CPU tensors). The counterpart of the JAX package's custom
+    VJP ``local_attention_packed_stripe_tpu``."""
+
+    @staticmethod
+    def forward(ctx, q, kx, vx, bias_vec, window: int, heads: int, left_edge: bool,
+                right_edge: bool):
+        ctx.save_for_backward(q, kx, vx, bias_vec)
+        ctx.args = (window, heads, left_edge, right_edge)
+        return _stripe_forward(q, kx, vx, bias_vec, window, heads, left_edge, right_edge)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kx, vx, bias_vec = ctx.saved_tensors
+        dq, dk, dv, dvec = local_attention_packed_stripe_bwd(q, kx, vx, g.contiguous(),
+                                                             bias_vec, *ctx.args)
+        return (dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None),
+                None, None, None, None)
+
+
+def local_attention_packed_stripe(q: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor,
+                                  bias_vec: Optional[torch.Tensor], window: int, heads: int,
+                                  left_edge: bool, right_edge: bool) -> torch.Tensor:
+    """K5: windowed attention of a rank's t_loc queries q (N, t_loc, H*D)
+    over its haloed keys kx, vx (N, t_loc + 2w, H*D), query row i seeing key
+    rows [i, i + 2w]; ``left_edge`` masks the left halo (the first rank),
+    ``right_edge`` the right one (the last rank).
+
+    A CUDA tensor launches ``dawn_local_attn_stripe_fwd`` in
+    ``csrc/local_attention.cu`` (D = 32, f32 or bf16, contiguous inputs) or
+    raises; a CPU tensor takes the plain version with :func:`stripe_bias`.
+    With grad on and an input requiring grad, the call goes through
+    :class:`LocalAttentionStripe`, whose backward is K6. The ``launches``
+    attribute counts K5's kernel launches."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, kx, vx, bias_vec)):
+        return LocalAttentionStripe.apply(q, kx, vx, bias_vec, window, heads, left_edge,
+                                          right_edge)
+    return _stripe_forward(q, kx, vx, bias_vec, window, heads, left_edge, right_edge)
+
+
+local_attention_packed_stripe.launches = 0
+
+
+def _swap_edges(send_left: torch.Tensor, send_right: torch.Tensor, ranks, idx: int,
+                group) -> tuple:
+    """Send ``send_left`` to the rank before this one on the axis and
+    ``send_right`` to the rank after it, all in one batch of P2P operations;
+    returns (from the rank before, from the rank after), zeros where there
+    is none (the global edges)."""
+    from_left, from_right = torch.zeros_like(send_right), torch.zeros_like(send_left)
+    ops = []
+    if idx > 0:
+        ops += [dist.P2POp(dist.isend, send_left.contiguous(), ranks[idx - 1], group),
+                dist.P2POp(dist.irecv, from_left, ranks[idx - 1], group)]
+    if idx < len(ranks) - 1:
+        ops += [dist.P2POp(dist.isend, send_right.contiguous(), ranks[idx + 1], group),
+                dist.P2POp(dist.irecv, from_right, ranks[idx + 1], group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return from_left, from_right
+
+
+class _HaloExchange(torch.autograd.Function):
+    """k, v (N, t_loc, HD) -> the haloed kx, vx (N, t_loc + 2w, HD): the
+    last w rows of the rank before and the first w rows of the rank after,
+    zeros at the global edges. The backward sends the halo rows' gradients
+    back to their owners, who add them to their edge rows: what JAX's
+    ``ppermute`` transposes to."""
+
+    @staticmethod
+    def forward(ctx, k, v, window: int, ranks, idx: int, group):
+        ctx.args = (window, ranks, idx, group)
+        t, w = k.shape[1], window
+        edge_l = torch.cat([k[:, :w], v[:, :w]], dim=-1)
+        edge_r = torch.cat([k[:, t - w:], v[:, t - w:]], dim=-1)
+        halo_l, halo_r = _swap_edges(edge_l, edge_r, ranks, idx, group)
+        kl, vl = halo_l.chunk(2, dim=-1)
+        kr, vr = halo_r.chunk(2, dim=-1)
+        return (torch.cat([kl, k, kr], dim=1).contiguous(),
+                torch.cat([vl, v, vr], dim=1).contiguous())
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        w, ranks, idx, group = ctx.args
+        t = gk.shape[1] - 2 * w
+        to_left = torch.cat([gk[:, :w], gv[:, :w]], dim=-1)
+        to_right = torch.cat([gk[:, w + t:], gv[:, w + t:]], dim=-1)
+        for_left_edge, for_right_edge = _swap_edges(to_left, to_right, ranks, idx, group)
+        dk, dv = gk[:, w:w + t].clone(), gv[:, w:w + t].clone()
+        gl_k, gl_v = for_left_edge.chunk(2, dim=-1)
+        gr_k, gr_v = for_right_edge.chunk(2, dim=-1)
+        dk[:, :w] += gl_k
+        dv[:, :w] += gl_v
+        dk[:, t - w:] += gr_k
+        dv[:, t - w:] += gr_v
+        return dk, dv, None, None, None, None
+
+
+def seq_sharded_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                bias_vec: Optional[torch.Tensor], window: int, heads: int,
+                                mesh, axis: str = "seq",
+                                force_stripe: bool = False) -> torch.Tensor:
+    """Windowed attention with the frame axis sharded over ``mesh``'s
+    ``axis``: the counterpart of ``dawn_tpu/ops/local_attention.py::
+    seq_sharded_local_attention`` for one rank.
+
+    q, k, v: this rank's (N, t_loc, H*D) frames in the packed layout, q
+    pre-scaled and rotary-rotated at the global frame positions. Each rank
+    sends the w edge rows of its k and v to both neighbours (one batch of
+    P2P operations on the axis's process group; zeros at the global edges),
+    then runs K5 on its t_loc queries over the t_loc + 2w haloed keys, the
+    first rank with the left halo masked and the last with the right.
+    Differentiable: K6 is the stripe's backward, and the exchange's backward
+    sends the halo rows' gradients back to their owners.
+
+    The axis must have more than one rank, or ``force_stripe`` must be set:
+    one shard is ``TemporalAttention``'s own dispatch (K1 or K3), where the
+    JAX function short-circuits. ``force_stripe=True`` runs the exchange
+    and the stripe on one shard: with no neighbour both halos are zeros and
+    both edge masks apply, the program of an edge rank on a whole video
+    (``dawn_tpu/ops/local_attention.py:654-661``)."""
+    n_sh = mesh.shape[axis]
+    assert n_sh > 1 or force_stripe, (
+        f"one '{axis}' shard without force_stripe: attend with K1 or K3 directly")
+    t_loc = q.shape[1]
+    assert t_loc >= window, (
+        f"seq shard of {t_loc} frames cannot cover the ±{window} window; "
+        f"use fewer 'seq' shards")
+    idx = mesh.index(axis)
+    kx, vx = _HaloExchange.apply(k, v, window, mesh.ranks(axis), idx, mesh.group(axis))
+    return local_attention_packed_stripe(q.contiguous(), kx, vx, bias_vec, window, heads,
+                                         idx == 0, idx == n_sh - 1)

@@ -7,7 +7,12 @@ statistics in float32 whatever the activation dtype.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
+
+from dawn_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def channel_layer_norm_core(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -25,13 +30,25 @@ def channel_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def video_group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
-                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                     bias: torch.Tensor, eps: float = 1e-5,
+                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """GroupNorm of a (B, T, H, W, C) video with statistics joint over
     (T, H, W, C/G), as torch ``nn.GroupNorm`` on (B, C, T, H, W) computes
-    them. Float32 statistics; returns x's dtype."""
+    them. Float32 statistics; returns x's dtype.
+
+    With ``group``, x holds this rank's frames of a video sharded over the
+    group's ranks (equal counts), and the statistics are the whole video's:
+    two f32 passes, an all-reduced sum for the mean, then an all-reduced
+    centred sum of squares, both differentiable."""
     b, t, h, w, c = x.shape
     xg = x.float().reshape(b, t * h * w, num_groups, c // num_groups)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    if group is None:
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    else:
+        count = xg.shape[1] * xg.shape[3] * dist.get_world_size(group)
+        mean = all_reduce_sum(xg.sum(dim=(1, 3), keepdim=True), group) / count
+        var = all_reduce_sum((xg - mean).square().sum(dim=(1, 3), keepdim=True),
+                             group) / count
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, t, h, w, c)
     return (y * weight + bias).to(x.dtype)

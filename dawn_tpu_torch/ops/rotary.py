@@ -12,11 +12,13 @@ import torch
 
 
 def rotary_cos_sin(seq_len: int, rot_dim: int, theta: float = 10000.0,
-                   dtype=torch.float32, device=None):
-    """(cos, sin), each (seq_len, rot_dim) with pairwise-repeated frequencies."""
+                   dtype=torch.float32, device=None, offset: int = 0):
+    """(cos, sin), each (seq_len, rot_dim) with pairwise-repeated frequencies,
+    for the frame positions offset, ..., offset + seq_len - 1 (a rank of a
+    seq-sharded video passes its first frame's global position)."""
     inv_freq = 1.0 / (theta ** (np.arange(0, rot_dim, 2)[: rot_dim // 2] / rot_dim))
-    freqs = np.repeat(np.outer(np.arange(seq_len, dtype=np.float64), inv_freq),
-                      2, axis=-1)
+    positions = np.arange(offset, offset + seq_len, dtype=np.float64)
+    freqs = np.repeat(np.outer(positions, inv_freq), 2, axis=-1)
     return (torch.as_tensor(np.cos(freqs), dtype=dtype, device=device),
             torch.as_tensor(np.sin(freqs), dtype=dtype, device=device))
 

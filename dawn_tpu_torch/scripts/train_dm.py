@@ -1,8 +1,24 @@
-"""DM diffusion training entry (stage 1 / stage 2) of the port, on one card.
+"""DM diffusion training entry (stage 1 / stage 2) of the port.
 
     python -m dawn_tpu_torch.scripts.train_dm --config configs/dm_train_stage1.yaml \\
         --frames-dir ... --hubert-dir ... --pose-dir ... --eye-dir ... \\
         --length-dict ... [--lmk-dir ...] [--lfg-ckpt LFG_128.pth] [--stage 2]
+
+On several cards of one machine, one process per card:
+
+    torchrun --nproc_per_node=N -m dawn_tpu_torch.scripts.train_dm ...
+
+(or the ``DAWN_COORDINATOR`` / ``DAWN_NUM_PROCESSES`` / ``DAWN_PROCESS_ID``
+environment, :mod:`dawn_tpu_torch.parallel.distributed`). The mesh follows
+the JAX script's rule (``scripts/train_dm.py:144-145``): 'seq' 2 when
+there is more than one process and their count is even, else 1, with the
+rest on 'data'; the step is ``DMTrainer.make_sharded_step``. Every rank
+reads the same batches; only rank 0 writes checkpoints and
+``metrics.jsonl``. The diffused frames must divide over 'seq' and cover
+``win_width`` on each rank (the JAX package asserts the same in
+``seq_sharded_local_attention``): at stage 1's 20 frames and window 20, two
+'seq' ranks hold 10 frames each, so a multi-card stage-1 run stops before
+its first step.
 
 The flags are those of ``scripts/train_dm.py``: the yaml config (batch size,
 frames, lr, schedule length, loss weights, window; optional ``unet:`` and
@@ -69,6 +85,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
+def check_seq_frames(frame_counts: List[int], seq: int, window: int) -> None:
+    """Raise before the first step when a clip's diffused frames do not
+    divide over the 'seq' ranks or leave a rank fewer frames than the
+    attention window (each rank's stripe must cover +-window)."""
+    for t in frame_counts:
+        if seq > 1 and (t % seq or t // seq < window):
+            raise ValueError(
+                f"{t} diffused frames over {seq} 'seq' ranks: each rank needs a whole share "
+                f"of at least win_width={window} frames (the halo of "
+                f"seq_sharded_local_attention); use clips of a multiple of {seq} frames, "
+                f">= {seq * window}, or fewer 'seq' ranks")
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     paths = sorted(glob.glob(os.path.join(ckpt_dir, "step_*.pt")))
     return paths[-1] if paths else None
@@ -83,8 +112,16 @@ def main(argv: Optional[List[str]] = None):
     import yaml
 
     from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.parallel.distributed import (maybe_initialize_distributed,
+                                                     process_count)
+    from dawn_tpu_torch.parallel.mesh import make_mesh
     from dawn_tpu_torch.train.data import HDTFVideoDataset
     from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+
+    maybe_initialize_distributed(device=args.device)
+    n = process_count()
+    mesh = make_mesh(seq_parallel=2 if n > 1 and n % 2 == 0 else 1)
+    lead = mesh.rank == 0
 
     with open(args.config) as f:
         cfg_yaml = yaml.safe_load(f)
@@ -108,7 +145,8 @@ def main(argv: Optional[List[str]] = None):
                      bg_kw=lf.get("bg"), flow_kw=lf.get("flow"))
     if args.lfg_ckpt:
         flow_ae.load_reference_checkpoint(args.lfg_ckpt)
-        print(f"loaded frozen LFG from {args.lfg_ckpt}")
+        if lead:
+            print(f"loaded frozen LFG from {args.lfg_ckpt}")
     trainer = DMTrainer(cfg, flow_ae=flow_ae, unet_kw=unet_kw or None, device=args.device,
                         seed=seed)
 
@@ -122,11 +160,15 @@ def main(argv: Optional[List[str]] = None):
         num_frames = s2_max + 1
     else:
         num_frames = cfg_yaml.get("num_frames", 20)
+    check_seq_frames(s2_buckets if args.stage == 2 else [num_frames], mesh.shape["seq"],
+                     cfg.win_width)
     dataset = HDTFVideoDataset(args.frames_dir, args.hubert_dir, args.pose_dir, args.eye_dir,
                                args.length_dict, lmk_dir=args.lmk_dir, num_frames=num_frames)
-    print(f"dataset: {len(dataset)} videos, {num_frames} frames/clip"
-          + (f", stage-2 buckets {s2_buckets}" if args.stage == 2 else "")
-          + f"; device {trainer.device}")
+    if lead:
+        print(f"dataset: {len(dataset)} videos, {num_frames} frames/clip"
+              + (f", stage-2 buckets {s2_buckets}" if args.stage == 2 else "")
+              + f"; device {trainer.device}; mesh {mesh.shape}")
+    step_fn = trainer.make_sharded_step(mesh) if mesh.distributed else trainer.train_step
 
     start = 0
     ckpt_dir = os.path.join(args.workdir, "ckpt")
@@ -136,9 +178,12 @@ def main(argv: Optional[List[str]] = None):
             trainer.load_state_dict(torch.load(path, map_location=trainer.device,
                                                weights_only=True))
             start = trainer.step
-            print(f"restored from step {start}")
+            if lead:
+                print(f"restored from step {start}")
 
     def save(step):
+        if not lead:
+            return
         os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"step_{step:07d}.pt")
         torch.save(trainer.state_dict(), path + ".tmp")
@@ -148,7 +193,8 @@ def main(argv: Optional[List[str]] = None):
     bs = cfg_yaml["batch_size"]
     rng_len = np.random.RandomState(seed)
     t0 = time.time()
-    with open(os.path.join(args.workdir, "metrics.jsonl"), "a") as metrics_log:
+    with open(os.path.join(args.workdir, "metrics.jsonl") if lead else os.devnull,
+              "a") as metrics_log:
         for step, batch in enumerate(dataset.batches(bs, total - start), start):
             if args.stage == 2:
                 want = rng_len.randint(s2_min, s2_max + 1)
@@ -156,10 +202,10 @@ def main(argv: Optional[List[str]] = None):
                 batch = {k: (v[:, : length + 1] if k in _TIME_KEYS else v)
                          for k, v in batch.items()}
             load_t = time.time() - t0
-            if load_t > 1.0:
+            if load_t > 1.0 and lead:
                 print(f"unnormal load {load_t:.2f}s at step {step}")
-            metrics = trainer.train_step(batch)
-            if step % args.log_every == 0:
+            metrics = step_fn(batch)
+            if step % args.log_every == 0 and lead:
                 metrics.update(step=step, wall=time.time() - t0,
                                frames=int(batch["video"].shape[1]))
                 metrics_log.write(json.dumps(metrics) + "\n")
@@ -175,3 +221,6 @@ def main(argv: Optional[List[str]] = None):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -23,6 +23,14 @@ attentions goes through K1 forward and K2 backward
 trainer's default 'full' computes the same function. Parameters stay f32;
 ``compute_dtype`` is the UNet's compute dtype. The trainer lives on the card
 unless the caller passes ``device="cpu"``.
+
+Across processes, :meth:`DMTrainer.make_sharded_step` takes the JAX
+package's ('data', 'seq') step (``dawn_tpu/train/train_dm.py:396-454``):
+every rank receives the whole batch, keeps its rows ('data') and its
+diffused frames ('seq'), runs the UNet sharded over 'seq' (halo exchange,
+K5 and K6 in every temporal attention), and contributes its share of each
+globally averaged loss term; one all-reduce of the gradients then gives the
+gradient of the global loss, and the update is the same on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ from dawn_tpu_torch.models.dm.diffusion import GaussianDiffusion
 from dawn_tpu_torch.models.dm.flow_diffusion import FaceLocEncoder, generate_bbox_mask
 from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
-from dawn_tpu_torch.train.augment import color_jitter_video
+from dawn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from dawn_tpu_torch.train.augment import color_jitter_video, jitter_factors
 
 
 def generate_mouth_mask(mouth_lmk: torch.Tensor, latent_size: int,
@@ -218,7 +227,8 @@ class DMTrainer:
         return self.flow_ae.teacher_outputs(ref_img, video)
 
     # ------------------------------------------------------------------- loss
-    def loss_fn(self, batch: Dict[str, torch.Tensor], draws: Optional[Dict[str, Any]] = None):
+    def loss_fn(self, batch: Dict[str, torch.Tensor], draws: Optional[Dict[str, Any]] = None,
+                mesh: Optional[Mesh] = None):
         """Total loss and the metrics {loss, floss, mouth_loss, total}.
 
         batch: video (B, T, H, W, 3) in [0, 255], hubert (B, T, 1024), pose
@@ -227,16 +237,35 @@ class DMTrainer:
         pass, no color jitter). ``draws`` may give the random draws of the
         step: 't' (B,), 'noise' (the x_start shape), 'drop' (B, T) bool and
         'jitter' (the color-jitter factors); what it lacks is drawn from the
-        trainer's generator."""
+        trainer's generator.
+
+        With ``mesh`` the batch and the draws are the whole step's (what
+        ``draws`` lacks is drawn at the whole batch's shapes), this rank
+        keeps its rows and diffused frames, and the terms are its shares of
+        the global means: their sums over the ranks are the global loss."""
         cfg = self.config
         draws = draws or {}
+        rows = frames = slice(None)
+        if mesh is not None:
+            draws = self._whole_draws(batch, draws)
+            rows = mesh.rows(batch["bbox"].shape[0])
+            batch = {k: v[rows] for k, v in batch.items()}
+            draws = {k: ({j: f[rows] for j, f in v.items()} if k == "jitter" else v[rows])
+                     for k, v in draws.items()}
         if "real_vid_grid" in batch:
             teacher = {k: batch[k].float() for k in self.TEACHER_KEYS}
             cond, mouth_lmk = self.prepare_cond(batch)
+            if mesh is not None:
+                frames = mesh.frames(cond.shape[1])
+                teacher.update({k: teacher[k][:, frames] for k in self.TEACHER_KEYS[:2]})
         else:
             video, ref_img, cond, mouth_lmk = self.prepare_inputs(batch, draws.get("jitter"))
+            if mesh is not None:
+                frames = mesh.frames(cond.shape[1])
+                video = video[:, frames]
             with torch.no_grad():
                 teacher = self.flow_ae.teacher_outputs(ref_img, video)
+        cond = cond[:, frames]
         b, t = teacher["real_vid_grid"].shape[:2]
         x_start = torch.cat([teacher["real_vid_grid"], teacher["real_vid_conf"] * 2.0 - 1.0],
                             dim=-1)
@@ -253,31 +282,75 @@ class DMTrainer:
         tvec = torch.as_tensor(tvec, device=self.device).long()
         noise, drop = (None if draws.get(k) is None
                        else torch.as_tensor(draws[k], device=self.device) for k in ("noise", "drop"))
+        if mesh is not None:
+            noise, drop = noise[:, frames], drop[:, frames]
         loss_elem, pred_x0, _ = self.diffusion.p_losses(
             self.unet, x_start, tvec, fea_t, mask_t, cond, noise=noise, drop=drop,
-            generator=self.generator)
+            generator=self.generator, group=self.unet.seq.group())
 
-        eps_loss = loss_elem.mean()
-        floss = (pred_x0 - x_start).square().mean()
-        if mouth_lmk is not None:
-            mmask = generate_mouth_mask(mouth_lmk.float(), cfg.latent_size, cfg.img_size)
-            mouth_loss = (loss_elem * mmask).sum() / mmask.sum().clamp_min(1.0)
+        mmask = (None if mouth_lmk is None else
+                 generate_mouth_mask(mouth_lmk[:, frames].float(), cfg.latent_size, cfg.img_size))
+        if mesh is None:
+            eps_loss = loss_elem.mean()
+            floss = (pred_x0 - x_start).square().mean()
+            if mmask is not None:
+                mouth_loss = (loss_elem * mmask).sum() / mmask.sum().clamp_min(1.0)
         else:
+            count = loss_elem.numel() * mesh.size
+            eps_loss = loss_elem.sum() / count
+            floss = (pred_x0 - x_start).square().sum() / count
+            if mmask is not None:
+                mask_sum = all_reduce_sum(mmask.sum(), mesh.group(None))
+                mouth_loss = (loss_elem * mmask).sum() / mask_sum.clamp_min(1.0)
+        if mmask is None:
             mouth_loss = torch.zeros((), device=self.device)
         total = eps_loss + cfg.floss_weight * floss + cfg.mouth_weight * mouth_loss
         metrics = {"loss": eps_loss, "floss": floss, "mouth_loss": mouth_loss, "total": total}
         return total, metrics
 
+    def _whole_draws(self, batch, draws: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The step's draws at the whole batch's shapes: those given, the
+        rest from the trainer's generator, which holds the same state on
+        every rank."""
+        dev, gen = self.device, self.generator
+        b = batch["bbox"].shape[0]
+        if "real_vid_grid" in batch:
+            t = batch["real_vid_grid"].shape[1]
+        else:
+            t = batch["video"].shape[1] - (1 if self.config.stage == 2 else 0)
+        out = {k: torch.as_tensor(v, device=dev) for k, v in draws.items() if k != "jitter"}
+        if self.config.color_jitter and "video" in batch:
+            jitter = draws.get("jitter") or jitter_factors(b, gen, dev)
+            out["jitter"] = {k: torch.as_tensor(v, device=dev) for k, v in jitter.items()}
+        if "t" not in out:
+            out["t"] = torch.randint(0, self.diffusion.timesteps, (b,), generator=gen, device=dev)
+        if "noise" not in out:
+            ls = self.config.latent_size
+            out["noise"] = torch.randn((b, t, ls, ls, 3), generator=gen, device=dev)
+        if "drop" not in out:
+            out["drop"] = torch.rand((b, t), generator=gen, device=dev) < self.config.null_cond_prob
+        return out
+
     # ------------------------------------------------------------------- step
-    def train_step(self, batch: Dict[str, Any],
-                   draws: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+    def train_step(self, batch: Dict[str, Any], draws: Optional[Dict[str, Any]] = None,
+                   mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """One optimizer step; returns the metrics as floats, with
-        'grads_finite' 1.0 or 0.0 and 'grad_norm' (before clipping)."""
+        'grads_finite' 1.0 or 0.0 and 'grad_norm' (before clipping). With
+        ``mesh``, see :meth:`make_sharded_step`."""
         batch = self._batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self.loss_fn(batch, draws)
-        total.backward()
+        with self.unet.sharded_over(mesh):
+            total, metrics = self.loss_fn(batch, draws, mesh)
+            total.backward()
         grads = [p.grad for p in self.unet.parameters() if p.grad is not None]
+        if mesh is not None:
+            # each rank's grads are those of its share: their sum is the
+            # gradient of the global loss
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.group(None))
+            for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(f.view_as(g))
+            metrics = dict(zip(metrics, all_reduce_sum(
+                torch.stack([v.detach() for v in metrics.values()]), mesh.group(None))))
         norm, finite = clip_by_global_norm_(grads, self.config.grad_clip)
         if finite:
             self.optimizer.step()
@@ -293,6 +366,26 @@ class DMTrainer:
         out = {k: v.item() for k, v in metrics.items()}
         out.update(grads_finite=float(finite), grad_norm=norm)
         return out
+
+    def make_sharded_step(self, mesh: Mesh):
+        """The train step over ``mesh`` (``dawn_tpu/train/train_dm.py:396-454``):
+        ``step(batch, draws=None)``, called on every rank with the whole
+        batch and the same draws (or none: every rank's generator draws the
+        same). The batch rows go over 'data', the diffused frames over
+        'seq' (the JAX spec table, ``:421-432``: every per-frame key is cut
+        to the rank's frames, bbox and the per-video teacher feature to its
+        rows only); stage 2 takes frame 0 of the whole clip as the reference
+        on every rank. The noise, timesteps, condition drops and jitter
+        factors are drawn for the whole batch and cut. The eps, floss and
+        mouth terms are global means (the mouth mask's sum all-reduced), so
+        each rank's loss is its share, and one all-reduce (sum) of the
+        gradients gives the gradient of the global loss. Clipping, the NaN
+        rollback, Adam and the EMA then run as in :meth:`train_step`, the
+        same on every rank; the metrics are all-reduced. The diffused frame
+        count must divide over 'seq', and T / seq must cover win_width."""
+        def step(batch, draws=None):
+            return self.train_step(batch, draws, mesh)
+        return step
 
     # ------------------------------------------------------------- checkpoint
     def state_dict(self) -> Dict[str, Any]:

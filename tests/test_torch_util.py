@@ -46,3 +46,38 @@ def leaves_with_paths(tree):
     """{'a/b/c': leaf} of a nested dict."""
     return {"/".join(str(k.key) for k in path): leaf
             for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def start_ranks(cases, world: int, workdir: str):
+    """Start ``world`` gloo processes of ``tests/torch_seq_worker.py`` on the
+    cases (a list of dicts of tensors, numbers and strings), over localhost;
+    returns a function that waits for them and returns each rank's results.
+    The workers import torch and the port only, so the caller can compute
+    its JAX references meanwhile."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    os.makedirs(workdir, exist_ok=True)
+    spec = os.path.join(workdir, "spec.pt")
+    torch.save(cases, spec)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DAWN_COORDINATOR=f"localhost:{port}",
+               DAWN_NUM_PROCESSES=str(world), OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, os.path.join(tests, "torch_seq_worker.py"),
+                               spec, workdir], env=dict(env, DAWN_PROCESS_ID=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+
+    def wait(timeout: float = 300.0):
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} of {world} failed:\n{log[-4000:]}"
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
+                for r in range(world)]
+
+    return wait
