@@ -8,7 +8,9 @@ the JAX package. Phases, one output line or more each (and one "phase ...
 done" line with its seconds), any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi).
-2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc.
+2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc; ptxas's
+   registers per kernel, and each kernel's HMMA (tensor-core) instructions
+   from cuobjdump -sass (the bf16 K4 and K5 bodies must have some).
 3. kernel K1 - the windowed-attention kernel against its plain PyTorch
    version on the card (TF32 off), case by case with max error and
    tolerance (the sampling shape, the stage-1 training shape N=4096, T=20,
@@ -28,7 +30,7 @@ done" line with its seconds), any failure exits non-zero:
    temporal attentions x 20 UNet calls), and reports the warm call's time,
    frames/s and peak device memory.
 6. profile - the warm path once more under torch.profiler: device busy
-   share and the kernels with the most device time.
+   share, the kernels with the most device time and the port's own kernels.
 7. kernel K2 - the windowed-attention backward against its plain version on
    the card (TF32 off), case by case (stage-1 shape f32 and bf16, stage 2 at
    T=40, T=77, T=1, T=129, T=256, no bias): dq, dk, dv, dvec errors with
@@ -57,9 +59,11 @@ done" line with its seconds), any failure exits non-zero:
    T=400 and T=800 top-level shapes.
 11. kernel K4 - its backward against its plain version: dq, dk, dv, dvec
    relative to each tensor's largest magnitude (T=400, 800, 257, 333, 1, one
-   64-row tile, no bias, w=70); autograd through local_attention on CUDA
-   tensors (K3 forward, K4 backward) against the plain autograd; kernel,
-   plain, SDPA backward and bound at T=400 and T=800.
+   64-row tile, no bias, w=70; bf16, the tensor-core body, at T=257, 1, one
+   tile, no bias, w=70, 333, 400, 800); autograd through local_attention on
+   CUDA tensors (K3 forward, K4 backward) against the plain autograd, f32 at
+   T=300 and bf16 at T=400; kernel, plain, SDPA backward and bound at T=400
+   and T=800.
 12. kernel K4 TemporalAttention - the gradient of one full-width temporal
    attention block at the 128^2 top level of a 400-frame video (f32) through
    K3 + K4 against the banded form's autograd, reaching the input, to_qkv,
@@ -75,10 +79,12 @@ done" line with its seconds), any failure exits non-zero:
    version (the JAX package's (H, TQ, TK) stripe bias) on the card, TF32 off:
    the 2- and 4-rank splits of the 128^2 top level at T=200 (N=1024, 8 x 32,
    w=40: t_loc 100 and 50) on edge and interior stripes in f32 and bf16,
-   both edges, t_loc = w, odd t_loc, no bias; one whole sequence cut into
-   stripes on the card (halo by slicing, edge flags by position) against K1
-   at T=200 (2 and 4 stripes) and K3 at T=400 (2 stripes); kernel, plain,
-   SDPA (with the (H, TQ, TK) bias) and bound at the 2-rank stripe in bf16.
+   both edges, t_loc = w, odd t_loc, no bias (bf16: the tensor-core body);
+   one whole sequence cut into stripes on the card (halo by slicing, edge
+   flags by position) against K1 at T=200 (2 and 4 stripes) and K3 at T=400
+   (2 stripes) in f32, and against the plain version in bf16; kernel,
+   plain, SDPA (with the (H, TQ, TK) bias) and bound at the 2-rank stripe in
+   bf16.
 16. kernel K6 - its backward against its plain version (the stage-2 stripe
    N=1024, t_loc=20, 60 keys, w=20 in f32 and bf16, interior, both edges,
    the 180-key sampling stripe, t_loc = w, odd, no bias, 256 keys); stripe
@@ -146,6 +152,27 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_mma_counts(build):
+    """{kernel function: HMMA (tensor-core) instructions in its SASS} over the
+    built libraries, from cuobjdump; empty where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("build: cuobjdump not found, tensor-core instructions not counted", flush=True)
+        return {}
+    counts = {}
+    for name in build.sources():
+        sass = subprocess.run([tool, "-sass", build._library_path(name)], capture_output=True,
+                              text=True, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+    return counts
 
 
 def check(ok, what):
@@ -417,9 +444,14 @@ def profile(run, card, what="profile"):
     print(f"{what} [{card}]: warm run under the profiler {wall:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f} %), {sum(e.count for e in kernels)} "
           f"kernel launches", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in top[:12]:
         print(f"{what}   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
               f"{e.key[:110]}", flush=True)
+    for e in top[12:]:      # the port's own kernels, wherever they rank
+        if any(s in e.key for s in ("local_attn", "tiled_bwd", "_mma_kernel")):
+            print(f"{what}   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
+                  f"{e.key[:110]} (port kernel, rank {top.index(e) + 1})", flush=True)
 
 
 def _wrappers():
@@ -733,7 +765,12 @@ def kernel_k4(card, rates):
              ("T=1", 64, 1, 40, f32, True),
              ("single tile T=50", 64, 50, 40, f32, True),
              ("no bias", 64, 400, 40, f32, False),
-             ("w=70", 64, 300, 70, f32, True)]
+             ("w=70", 64, 300, 70, f32, True),
+             ("T=257 w=20 bf16", 64, 257, 20, bf16, True),
+             ("T=1 bf16", 64, 1, 40, bf16, True),
+             ("single tile T=50 bf16", 64, 50, 40, bf16, True),
+             ("no bias bf16", 64, 400, 40, bf16, False),
+             ("w=70 bf16", 64, 300, 70, bf16, True)]
     for name, n, t, w, dtype, bias in cases:
         q, k, v, g, vec = _tiled_inputs(gen, n, t, 8, w, dtype, bias, grad=True)
         compare(name, n, t, w, dtype, la.local_attention_tiled_bwd(q, k, v, g, vec, w),
@@ -755,6 +792,21 @@ def kernel_k4(card, rates):
           f"the plain version, N={n} T={t} f32, q/k/v/bias: max err {err:.3e} of max|ref| "
           f"(tol 1e-4)", flush=True)
     check(err <= 1e-4, f"K4 autograd error {err}")
+    # the same in bf16 at T=400 (K3 + the tensor-core K4), 2e-2 of each
+    # tensor's max|ref| as the bf16 cases above
+    n, t, w = 64, 400, 40
+    q, k, v, g, vec = _tiled_inputs(gen, n, t, 8, w, bf16, grad=True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, vec)]
+    _reset_counts()
+    got = torch.autograd.grad(la.local_attention(*leaves, w), leaves, g)
+    check(_counts() == (0, 0, 1, 1, 0, 0), f"bf16 autograd launches (K1-K6) {_counts()}")
+    ref = torch.autograd.grad(la.local_attention_banded(*leaves, w), leaves, g)
+    errs = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            for a, b in zip(got, ref)]
+    print(f"kernel K4 autograd bf16: grad of local_attention on the card (K3 + K4) vs autograd "
+          f"of the plain version, N={n} T={t}: max err / max|ref| for q {errs[0]:.3e}, k "
+          f"{errs[1]:.3e}, v {errs[2]:.3e}, bias {errs[3]:.3e} (tol 2e-2)", flush=True)
+    check(np.isfinite(max(errs)) and max(errs) <= 2e-2, f"K4 bf16 autograd error {errs}")
 
     timing = {}
     for t in (400, 800):
@@ -951,7 +1003,11 @@ def kernel_k5(card, rates):
              ("both edges t_loc=200", 64, 200, 40, f32, True, True, True, 1e-4),
              ("t_loc=w=11 interior", 64, 11, 11, f32, False, False, True, 1e-4),
              ("t_loc=13 w=5 left", 64, 13, 5, f32, True, False, True, 1e-4),
-             ("no bias interior", 64, 100, 40, f32, False, False, False, 1e-4)]
+             ("no bias interior", 64, 100, 40, f32, False, False, False, 1e-4),
+             ("both edges t_loc=200 bf16", 64, 200, 40, bf16, True, True, True, 2e-2),
+             ("t_loc=w=11 interior bf16", 64, 11, 11, bf16, False, False, True, 2e-2),
+             ("t_loc=13 w=5 left bf16", 64, 13, 5, bf16, True, False, True, 2e-2),
+             ("no bias interior bf16", 64, 100, 40, bf16, False, False, False, 2e-2)]
     errs = {}
     for name, n, t_loc, w, dtype, left, right, bias, tol in cases:
         q, kx, vx, _, vec = _stripe_inputs(gen, n, t_loc, w, dtype, bias)
@@ -987,6 +1043,25 @@ def kernel_k5(card, rates):
               f"{t_loc + 2 * w}), N={n} f32, against {what} on the whole sequence: "
               f"max_abs_err={err:.3e} tol=1e-5", flush=True)
         check(err <= 1e-5, f"K5 composed T={t} x {ranks} error {err}")
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
+    # the same in bf16 (the tensor-core body) against the plain version of
+    # the whole sequence: K1's bf16 tolerance, one ulp of outputs in [2, 4)
+    for t, ranks, w in ((200, 2, 40), (200, 4, 40), (400, 2, 40)):
+        n = 256
+        q, k, v, _, _ = _stripe_inputs(gen, n, t, 0, bf16, bias=False)
+        vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+        t_loc = t // ranks
+        got = torch.cat([la.local_attention_packed_stripe(
+            q[:, r * t_loc:(r + 1) * t_loc].contiguous(), _stripe(k, r, ranks, w),
+            _stripe(v, r, ranks, w), vec, w, 8, r == 0, r == ranks - 1)
+            for r in range(ranks)], dim=1)
+        ref = la.local_attention_packed_plain(q, k, v, vec, w, 8)
+        err = (got.float() - ref.float()).abs().max().item()
+        print(f"kernel K5 composed bf16: T={t} over {ranks} stripes of {t_loc} (keys "
+              f"{t_loc + 2 * w}), N={n}, against the plain version on the whole sequence: "
+              f"max_abs_err={err:.3e} tol=2e-2", flush=True)
+        check(err <= 2e-2 and np.isfinite(err), f"K5 composed bf16 T={t} x {ranks} error {err}")
         del q, k, v, got, ref
         torch.cuda.empty_cache()
 
@@ -1340,6 +1415,12 @@ def main():
         for line in log.splitlines():
             if "Compiling entry function" in line or "registers" in line:
                 print(f"build: {name}.cu {line.strip()}", flush=True)
+    hmma = sass_mma_counts(build)
+    for fn, count in sorted(hmma.items()):
+        print(f"build: sass {fn}: {count} HMMA", flush=True)
+    for entry in ("attn_fwd_mma_kernel", "bwd_query_mma_kernel", "bwd_key_mma_kernel"):
+        check(any(entry in fn and c > 0 for fn, c in hmma.items()) or not hmma,
+              f"{entry} has no tensor-core instruction")
 
     def phase(fn, *args, **kw):
         t0 = time.perf_counter()

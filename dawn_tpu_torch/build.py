@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (git-ignored), keyed
-on a hash of the source and the flags, then loaded with ``ctypes``. The build
-happens on first use; :func:`build_all` starts one ``nvcc`` per source at
-once. Nothing here runs at import time.
+on a hash of the source, every shared header ``csrc/*.cuh`` and the flags,
+then loaded with ``ctypes``. The build happens on first use; :func:`build_all`
+starts one ``nvcc`` per source at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -38,8 +38,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``<name>.cu``'s library lives: keyed on the source, every header
+    (any source may include any of them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

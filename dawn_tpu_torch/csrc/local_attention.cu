@@ -29,7 +29,8 @@
 // tiles of bq >= w rows each, masked), the staged rows are exactly the band's,
 // so any w that fits shared memory works (2*(128+2w)*33*4 B <= 227 KB: w <=
 // 376). (N*H, tiles) go on gridDim.x and y: 256^2 at T=400 has 32768 (n, h)
-// pairs. No tensor cores yet (mma/wgmma, TMA and pipelining are later work).
+// pairs. This body runs on the CUDA cores (no mma), one shared-memory load
+// per FMA; it serves K1, K3 and f32 K5.
 //
 // K5 replaces the body launched by local_attention_packed_stripe (K1's
 // Pallas body on a rectangular block) in the packed layout: the t_loc
@@ -42,12 +43,40 @@
 // (H, 2w+1) vector and two flags and skips the masked keys, whose weight is
 // exactly 0 in f32. At the 2-rank split of the 128^2 top level (N=1024,
 // t_loc=100, 8 x 32, w=40, bf16) it moves q, out (52.4 MB each) and the
-// haloed k, v (94.4 MB each): 293.6 MB, about 88 us at 3.35 TB/s.
+// haloed k, v (94.4 MB each): 293.6 MB, about 88 us at 3.35 TB/s (rank 0
+// reads no masked halo row: 251.7 MB, 75 us).
 //
-// All three run one body: a query row i sees the key rows j in
+// Both bodies take one key range: a query row i sees the key rows j in
 // [i + key_off - w, i + key_off + w] cut to [kmin, kmax], with the bias
 // entry j - key_off - i + w. K1 and K3: key_off 0, keys [0, T). K5: key_off
 // w, keys [w or 0, w + t_loc - 1 or t_loc + 2w - 1] by the edge flags.
+//
+// bf16 K5 runs the tensor-core body (attn_fwd_mma_kernel, packed layout);
+// f32 K5, K1 and K3 keep the CUDA-core body. The C entry dispatches on
+// is_bf16.
+// What bounds bf16 K5: bytes. At rank 0 of the 2-rank split it must move
+// 251.7 MB, 75 us, against about 7.6 GFLOP of tensor work
+// even with each warp's band padded to whole k16 steps, under 10 us at the
+// bf16 peak. The CUDA-core body cannot get near the bytes: one thread a
+// query row, every score computed twice, one shared load per FMA.
+// What the design does about it: a block owns one (sequence, head, tile of
+// 64 query rows), 4 warps of 16 rows. It stages with 16-byte cp.async, in
+// bf16, the query tile and the key/value rows of the tile's band, zeros
+// past [kmin, kmax]; a warp's band is 16 + 2w keys in k16 steps (96 at w =
+// 40). S = Q K^T and O = P V run on mma.sync m16n8k16 with ldmatrix
+// fragments (mma_bf16.cuh); S's C fragments, packed to bf16, are P V's A
+// fragments, so P never leaves registers. The T5 bias is added by diagonal
+// from shared memory, out-of-band and masked keys get -inf (weight exactly
+// 0). The softmax is online over chunks of 32 keys, so registers do not
+// grow with w. P is rounded to bf16 before P V, as the TPU kernel rounds it
+// (p.astype(v.dtype)); the f32 row sum divides the output once. Blocks are
+// numbered tile-fastest, so the tiles of one (sequence, head), whose bands
+// share 2w key rows, run side by side and meet those rows in L2.
+// mma.sync and not wgmma: the kernel is bytes-bound with tensor throughput
+// to spare, and wgmma's 64-row tiles would make a warpgroup cover a
+// 64 + 2w = 144-key band where four 16-row warps need 96 keys each.
+// Any w with (64 + 2 * staged_rows(w)) * 80 B + (2w + 1) * 4 B <= 227 KB
+// works: w <= 663.
 //
 // C interface (bound with ctypes):
 //   int dawn_local_attn_packed_fwd(q, k, v, bias, out, n, t, heads, dim_head,
@@ -57,13 +86,16 @@
 //   int dawn_local_attn_stripe_fwd(q, k, v, bias, out, n, t_loc, heads,
 //                                  dim_head, window, left_edge, right_edge,
 //                                  is_bf16, stream)             K5, q (N, t_loc, H*D),
-//                                                               k, v (N, t_loc + 2w, H*D)
+//                                                               k, v (N, t_loc + 2w, H*D);
+//                                                               bf16 on tensor cores
 // each returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a dim_head it was not built for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -180,6 +212,148 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+// The running state of a warp's 16 query rows in the tensor-core body: the
+// output accumulator (C fragments of 4 n8 tiles over d), the row max and
+// this lane's share of the row sum.
+struct RowState {
+  float o[4][4];
+  float m[2], l[2];
+};
+
+// One chunk of NT n8 key tiles at band offset c0 of a warp (its band's key
+// rows kw, vw in shared memory, band offset 0 at key row key_w): scores and
+// bias, the online max and sum, then P V.
+template <int NT>
+__device__ __forceinline__ void fwd_chunk(RowState& st, const uint32_t (&qa)[2][4],
+                                          const __nv_bfloat16* kw, const __nv_bfloat16* vw,
+                                          const float* bs, int c0, int key_w, int kmin,
+                                          int kmax, int nbias, int lane) {
+  using namespace dawn_mma;
+  const int g = lane >> 2, t = lane & 3;
+  float s[NT][4];
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mma_dot(s[j], qa, kw, c0 + 8 * j, lane);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // row g + 8 (r / 2), band offset off: bias entry off - row
+      const int off = c0 + 8 * j + 2 * t + (r & 1), idx = off - g - 8 * (r >> 1);
+      const int key = key_w + off;
+      const bool ok = idx >= 0 && idx < nbias && key >= kmin && key <= kmax;
+      s[j][r] = ok ? s[j][r] + bs[ok ? idx : 0] : -INFINITY;
+      mx[r >> 1] = fmaxf(mx[r >> 1], s[j][r]);
+    }
+  }
+  float base[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m_new = fmaxf(st.m[hh], quad_max(mx[hh]));
+    base[hh] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+    const float corr = exp2f((st.m[hh] - base[hh]) * kLog2e);
+    st.m[hh] = m_new;
+    st.l[hh] *= corr;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      st.o[n][2 * hh] *= corr;
+      st.o[n][2 * hh + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s[j][r] = exp2f((s[j][r] - base[r >> 1]) * kLog2e);
+      st.l[r >> 1] += s[j][r];
+    }
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    uint32_t pa[4];
+    pack_a(pa, s[2 * i], s[2 * i + 1]);   // P rounded to bf16
+    mma_rows(st.o, pa, vw, c0 + 16 * i, lane);
+  }
+}
+
+// The tensor-core body, bf16, packed (N, T, H*D) layout: one block per
+// (sequence, head, 64-row query tile), numbered tile-fastest.
+__global__ void __launch_bounds__(128)
+attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ out, int seq_q, KeyRange kr, int heads,
+                    int window, int tiles) {
+  using namespace dawn_mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int staged = staged_rows(window), nbias = 2 * window + 1;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // 64 x kLd
+  __nv_bfloat16* ks = qs + 64 * kLd;                                  // staged x kLd
+  __nv_bfloat16* vs = ks + staged * kLd;
+  float* bs = reinterpret_cast<float*>(vs + staged * kLd);
+
+  const int nh = blockIdx.x / tiles, tile = blockIdx.x % tiles, h = nh % heads;
+  const int q0 = tile * 64, nq = min(64, seq_q - q0);
+  const int kb = q0 + kr.key_off - window;          // the key row at shared row 0
+  // row r of this (sequence, head) is at base + r * ld
+  const size_t ld = (size_t)heads * kDim, seq = nh / heads, head_off = (size_t)h * kDim;
+  const __nv_bfloat16* qg = q + seq * seq_q * ld + head_off;
+  __nv_bfloat16* og = out + seq * seq_q * ld + head_off;
+  const size_t k_base = seq * kr.seq_k * ld + head_off;
+  stage_rows(qs, qg, ld, q0, 64, q0, q0 + nq - 1);
+  const int k_lo = max(kb, kr.kmin), k_hi = min(q0 + nq - 1 + kr.key_off + window, kr.kmax);
+  stage_rows(ks, k + k_base, ld, kb, staged, k_lo, k_hi);
+  stage_rows(vs, v + k_base, ld, kb, staged, k_lo, k_hi);
+  for (int e = threadIdx.x; e < nbias; e += blockDim.x)
+    bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (16 * warp >= nq) return;
+  uint32_t qa[2][4];
+  load_a(qa[0], qs, 16 * warp, 0, lane);
+  load_a(qa[1], qs, 16 * warp, 16, lane);
+  const __nv_bfloat16* kw = ks + 16 * warp * kLd;   // the warp's band: rows [0, nk)
+  const __nv_bfloat16* vw = vs + 16 * warp * kLd;
+  const int key_w = kb + 16 * warp, nk = band_rows(window);
+
+  RowState st = {{}, {-INFINITY, -INFINITY}, {0.f, 0.f}};
+  int c0 = 0;
+  for (; c0 + 32 <= nk; c0 += 32)
+    fwd_chunk<4>(st, qa, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax, nbias, lane);
+  if (c0 < nk)   // nk is a multiple of 16
+    fwd_chunk<2>(st, qa, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax, nbias, lane);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = 1.f / quad_sum(st.l[hh]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      st.o[n][2 * hh] *= inv;
+      st.o[n][2 * hh + 1] *= inv;
+    }
+  }
+  store_rows(og, ld, q0 + 16 * warp, nq - 16 * warp, st.o, qs + 16 * warp * kLd, lane);
+}
+
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias,
+                       void* out, int n, int seq_q, KeyRange kr, int heads, int window,
+                       cudaStream_t stream) {
+  const size_t smem = (64 + 2 * (size_t)dawn_mma::staged_rows(window)) * dawn_mma::kLd *
+                          sizeof(__nv_bfloat16) +
+                      (2 * (size_t)window + 1) * sizeof(float);
+  auto kernel = attn_fwd_mma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (seq_q + 63) / 64;
+  const long long blocks = (long long)n * heads * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), seq_q, kr, heads, window, tiles);
+  return cudaGetLastError();
+}
+
 template <bool kPacked>
 int launch_any(const void* q, const void* k, const void* v, const void* bias, void* out,
                int n, int seq_q, KeyRange kr, int heads, int dim_head, int window,
@@ -217,6 +391,10 @@ extern "C" int dawn_local_attn_stripe_fwd(const void* q, const void* k, const vo
   const int seq_k = t_loc + 2 * window;
   const KeyRange kr{seq_k, window, left_edge ? window : 0,
                     right_edge ? window + t_loc - 1 : seq_k - 1};
-  return launch_any<true>(q, k, v, bias, out, n, t_loc, kr, heads, dim_head, window,
-                          is_bf16, stream);
+  if (!is_bf16)
+    return launch_any<true>(q, k, v, bias, out, n, t_loc, kr, heads, dim_head, window, 0,
+                            stream);
+  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_mma(q, k, v, bias, out, n, t_loc, kr, heads, window,
+                               static_cast<cudaStream_t>(stream));
 }

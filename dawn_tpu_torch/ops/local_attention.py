@@ -234,6 +234,15 @@ def _check_kernel_inputs(what: str, q: torch.Tensor, others, bias_vec, window: i
                              f"{tuple(bias_vec.shape)} {bias_vec.dtype} {bias_vec.device}")
 
 
+def _check_aligned(what: str, tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary: the
+    bf16 tensor-core kernels (K4, K5) stage rows with 16-byte copies."""
+    for name, x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} in bf16 needs {name} 16-byte aligned, got address "
+                             f"{x.data_ptr():#x}")
+
+
 def _packed_dim_head(q: torch.Tensor, heads: int) -> int:
     hd = q.shape[-1]
     if hd % heads:
@@ -427,15 +436,18 @@ def local_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor launches the CUDA kernel in
     ``csrc/local_attention_tiled_bwd.cu`` (D = 32, f32 or bf16, contiguous
-    inputs) or raises; a CPU tensor takes the plain version. One call is two
-    launches behind one C entry, counted once in ``launches``: a query-tile
-    pass (dq, the row statistics, one (2w+1) bias partial per (sequence,
-    head, tile)) and a key-tile pass (dk, dv from those statistics). The
-    partials are summed here in a fixed order."""
+    inputs; bf16 on the tensor cores, 16-byte aligned) or raises; a CPU
+    tensor takes the plain version. One call is two launches behind one C
+    entry, counted once in ``launches``: a query-tile pass (dq, the row
+    statistics lse and delta, one (2w+1) bias partial per (sequence, head,
+    tile)) and a key-tile pass (dk, dv from those statistics). The partials
+    are summed here in a fixed order."""
     if q.device.type == "cpu":
         return local_attention_tiled_bwd_plain(q, k, v, g, bias_vec, window)
     n, h, t, d = q.shape
     _check_kernel_inputs("K4", q, (("k", k), ("v", v), ("g", g)), bias_vec, window, h, d)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K4", (("q", q), ("k", k), ("v", v), ("g", g)))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd",
                    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
@@ -446,7 +458,7 @@ def local_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=q.device) if bias_vec is not None else None)
     if q.numel() == 0:
         return dq, dk, dv, (None if bias_vec is None else torch.zeros_like(bias_vec))
-    stats = torch.empty((3, n * h, t), dtype=torch.float32, device=q.device)
+    stats = torch.empty((2, n * h, t), dtype=torch.float32, device=q.device)   # lse, delta
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dawn_local_attn_tiled_bwd(
@@ -631,6 +643,8 @@ def _stripe_forward(q, kx, vx, bias_vec, window: int, heads: int, left_edge: boo
                            right_edge=right_edge)
         return local_attention_packed_stripe_plain(q, kx, vx, bias, heads)
     _check_stripe_inputs("K5", q, kx, vx, None, bias_vec, window, heads)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K5", (("q", q), ("kx", kx), ("vx", vx)))
     n, t_loc, hd = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -724,11 +738,12 @@ def local_attention_packed_stripe(q: torch.Tensor, kx: torch.Tensor, vx: torch.T
     ``right_edge`` the right one (the last rank).
 
     A CUDA tensor launches ``dawn_local_attn_stripe_fwd`` in
-    ``csrc/local_attention.cu`` (D = 32, f32 or bf16, contiguous inputs) or
-    raises; a CPU tensor takes the plain version with :func:`stripe_bias`.
-    With grad on and an input requiring grad, the call goes through
-    :class:`LocalAttentionStripe`, whose backward is K6. The ``launches``
-    attribute counts K5's kernel launches."""
+    ``csrc/local_attention.cu`` (D = 32, f32 or bf16, contiguous inputs;
+    bf16 on the tensor cores, 16-byte aligned) or raises; a CPU tensor takes
+    the plain version with :func:`stripe_bias`. With grad on and an input
+    requiring grad, the call goes through :class:`LocalAttentionStripe`,
+    whose backward is K6. The ``launches`` attribute counts K5's kernel
+    launches."""
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (q, kx, vx, bias_vec)):
         return LocalAttentionStripe.apply(q, kx, vx, bias_vec, window, heads, left_edge,
