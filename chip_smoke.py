@@ -10,17 +10,22 @@ done" line with its seconds), any failure exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc; ptxas's
    registers per kernel, and each kernel's HMMA (tensor-core) instructions
-   from cuobjdump -sass (the bf16 K4 and K5 bodies must have some).
+   from cuobjdump -sass (every instantiation of the bf16 K1/K5 body and of
+   the K4/K6 passes must have some).
+   routes  - bf16 K1 and K6 called for half a second each under the
+   profiler: K1 must run the tensor-core forward and not the CUDA-core
+   one, K6 the two tensor-core passes and not the f32 ones.
 3. kernel K1 - the windowed-attention kernel against its plain PyTorch
    version on the card (TF32 off), case by case with max error and
    tolerance (the sampling shape, the stage-1 training shape N=4096, T=20,
    w=20 in f32 and bf16, stage 2 at T=40, T=77, T=1, T=256, T=129, no
-   bias); at the main-path shape (N=1024 sequences, T=200, 8 heads x 32,
-   w=40, bf16) the kernel, the plain version and one library call
-   (F.scaled_dot_product_attention with the (H, T, T) bias and window mask,
-   a yardstick the port never calls) are timed with CUDA events, beside the
-   least time the card could take (bytes over memory rate, operations over
-   peak rate).
+   bias, each in f32 and bf16; windows past T, w=300 at T=200 and w=20 at
+   T=20, in both); at the main-path shape (N=1024
+   sequences, T=200, 8 heads x 32, w=40, bf16) the kernel, the plain version
+   and one library call (F.scaled_dot_product_attention with the (H, T, T)
+   bias and window mask, a yardstick the port never calls) are timed with
+   CUDA events, beside the least time the card could take (bytes over
+   memory rate, operations over peak rate).
 4. parity  - a 40-frame, 2-step f32 sample_one_video at full width runs on the
    card (kernel) and on the CPU (plain path), same weights and noise, TF32
    off; max error of the output video at tolerance 1e-3.
@@ -86,11 +91,18 @@ done" line with its seconds), any failure exits non-zero:
    plain, SDPA (with the (H, TQ, TK) bias) and bound at the 2-rank stripe in
    bf16.
 16. kernel K6 - its backward against its plain version (the stage-2 stripe
-   N=1024, t_loc=20, 60 keys, w=20 in f32 and bf16, interior, both edges,
-   the 180-key sampling stripe, t_loc = w, odd, no bias, 256 keys); stripe
-   gradients of one sequence, halo rows added to their owners, against K2;
-   autograd through LocalAttentionStripe on CUDA tensors (K5 + K6); kernel,
-   plain, SDPA backward and bound at the stage-2 stripe in bf16.
+   N=1024, t_loc=20, 60 keys, w=20, interior, both edges, the 180-key
+   sampling stripe, t_loc = w, odd, no bias, 256 and 320 keys, each in f32
+   and bf16); stripe gradients of one sequence, halo rows added to their
+   owners, against K2 (f32) and against the plain version of the whole
+   sequence at T=480 over two 320-key stripes (f32 and bf16); two calls
+   give the same bits; autograd through LocalAttentionStripe on CUDA
+   tensors (K5 + K6); kernel, plain, SDPA backward and bound at the stage-2
+   stripe in bf16.
+   window limits - for K1-K6 in f32 and bf16, the largest window each
+   launch's shared memory allows (dawn_local_attn_max_window); one past it
+   must raise the ValueError that names the kernel, the limit and the dtype
+   before anything is launched (bf16 K1 has no limit).
 17. seq path - a one-rank NCCL process group (file store, no network) and
    its mesh; the UNet's stripe forced, so one card runs the program of an
    edge rank (halo exchange, K5, the GroupNorm all-reduces and the
@@ -180,6 +192,52 @@ def check(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+def kernels_run(fn, seconds=0.5):
+    """Names of the CUDA kernels that calls of ``fn`` launched under
+    torch.profiler, calling it again for ``seconds``: a session of a few
+    milliseconds late in a long process was seen to record no device
+    activity at all."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_routes():
+    """Phase: which kernels bf16 K1 and K6 launch, under the profiler at the
+    start of the run: K1 the tensor-core forward and not the CUDA-core one,
+    K6 the two tensor-core passes and not the f32 ones. Launches here are
+    not counted on any path."""
+    import torch
+    from dawn_tpu_torch.ops import local_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    n, t, w = 1024, 200, 40                       # K1 at the sampling top level
+    q, k, v = (torch.randn(n, t, 256, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+    ran = kernels_run(lambda: la.local_attention_packed(q, k, v, vec, w, 8))
+    print(f"kernel routes: bf16 K1 under the profiler: {sorted(ran)}", flush=True)
+    check(any("attn_fwd_mma_kernel" in x for x in ran)
+          and not any("local_attn_fwd_kernel" in x for x in ran),
+          f"bf16 K1 did not run the tensor-core body alone: {sorted(ran)}")
+    n, t_loc, w = 1024, 20, 20                    # K6 at the stage-2 stripe
+    q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, torch.bfloat16)
+    ran = kernels_run(lambda: la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8,
+                                                                   True, False))
+    print(f"kernel routes: bf16 K6 under the profiler: {sorted(ran)}", flush=True)
+    check(any("bwd_query_mma_kernel" in x for x in ran)
+          and any("bwd_key_mma_kernel" in x for x in ran)
+          and not any("tiled_bwd_" in x for x in ran),
+          f"bf16 K6 did not run the two tensor-core passes: {sorted(ran)}")
+
+
 def kernel_k1(card, rates):
     """Phase 3: K1 against its plain version; timings at the main shape."""
     import numpy as np
@@ -198,17 +256,28 @@ def kernel_k1(card, rates):
 
     # the sampling shape (T=200, w=40), then the training shapes: stage 1's
     # top UNet level (4 x 32^2 sequences of 20 frames, w=20 >= T-1, so every
-    # key is in band) and stage 2's largest length bucket (40 frames)
-    cases = [("main f32", 1024, 200, 8, 32, 40, torch.float32, True, 1e-4),
-             ("main bf16", 1024, 200, 8, 32, 40, torch.bfloat16, True, 2e-2),
-             ("stage-1 f32", 4096, 20, 8, 32, 20, torch.float32, True, 1e-4),
-             ("stage-1 bf16", 4096, 20, 8, 32, 20, torch.bfloat16, True, 2e-2),
-             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, torch.bfloat16, True, 2e-2),
-             ("T=77 w=20", 64, 77, 8, 32, 20, torch.float32, True, 1e-4),
-             ("T=1", 64, 1, 8, 32, 40, torch.float32, True, 1e-4),
-             ("T=256", 64, 256, 8, 32, 40, torch.float32, True, 1e-4),
-             ("T=129", 64, 129, 8, 32, 40, torch.float32, True, 1e-4),
-             ("no bias", 64, 200, 8, 32, 40, torch.float32, False, 1e-4)]
+    # key is in band) and stage 2's largest length bucket (40 frames); edge
+    # cases in both dtypes, and windows past T (bf16 clamps the band to T-1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main f32", 1024, 200, 8, 32, 40, f32, True, 1e-4),
+             ("main bf16", 1024, 200, 8, 32, 40, bf16, True, 2e-2),
+             ("stage-1 f32", 4096, 20, 8, 32, 20, f32, True, 1e-4),
+             ("stage-1 bf16", 4096, 20, 8, 32, 20, bf16, True, 2e-2),
+             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, bf16, True, 2e-2),
+             ("T=77 w=20", 64, 77, 8, 32, 20, f32, True, 1e-4),
+             ("T=1", 64, 1, 8, 32, 40, f32, True, 1e-4),
+             ("T=256", 64, 256, 8, 32, 40, f32, True, 1e-4),
+             ("T=129", 64, 129, 8, 32, 40, f32, True, 1e-4),
+             ("no bias", 64, 200, 8, 32, 40, f32, False, 1e-4),
+             ("T=77 w=20 bf16", 64, 77, 8, 32, 20, bf16, True, 2e-2),
+             ("T=1 bf16", 64, 1, 8, 32, 40, bf16, True, 2e-2),
+             ("T=256 bf16", 64, 256, 8, 32, 40, bf16, True, 2e-2),
+             ("T=129 bf16", 64, 129, 8, 32, 40, bf16, True, 2e-2),
+             ("no bias bf16", 64, 200, 8, 32, 40, bf16, False, 2e-2),
+             ("w=300 T=200", 64, 200, 8, 32, 300, f32, True, 1e-4),
+             ("w=300 T=200 bf16", 64, 200, 8, 32, 300, bf16, True, 2e-2),
+             ("w=20 T=20", 64, 20, 8, 32, 20, f32, True, 1e-4),
+             ("w=20 T=20 bf16", 64, 20, 8, 32, 20, bf16, True, 2e-2)]
     errs = {}
     for name, n, t, heads, d, w, dtype, bias, tol in cases:
         q, k, v, vec = inputs(n, t, heads, d, w, dtype, bias)
@@ -296,8 +365,8 @@ def kernel_k2(card, rates):
     # stage 1: 4 x 32^2 sequences of 20 frames at the top UNet level, w=20;
     # stage 2: its largest length bucket, 40 diffused frames. Tolerances are
     # on max|err| / max(1, max|ref|): f32 1e-4 (sum order); bf16 2e-2 for
-    # dq/dk/dv (stored in bf16, the kernel keeps p and dS in f32 where the
-    # JAX kernel casts them to bf16) and 1e-3 for the f32 dvec.
+    # dq/dk/dv (stored in bf16; p and dS rounded to bf16 before the products
+    # in both, as the JAX kernel rounds them) and 1e-3 for the f32 dvec.
     cases = [("stage-1 f32", 4096, 20, 8, 32, 20, torch.float32, True),
              ("stage-1 bf16", 4096, 20, 8, 32, 20, torch.bfloat16, True),
              ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, torch.bfloat16, True),
@@ -1125,7 +1194,8 @@ def kernel_k6(card, rates):
     # the stage-2 clip of 40 diffused frames (w = 20) over 2 ranks (t_loc 20,
     # 60 keys) and an interior rank of 4; both edges (a forced single shard);
     # the 2-rank sampling stripe (180 keys); t_loc = w; odd t_loc; no bias;
-    # the largest stripe K6 takes (256 keys)
+    # 256 keys; 320 keys (t_loc 240, w 40: more than one block could hold
+    # whole); each in f32 and bf16
     cases = [("stage-2 2-rank rank 0 f32", 1024, 20, 20, f32, True, False, True),
              ("stage-2 2-rank rank 0 bf16", 1024, 20, 20, bf16, True, False, True),
              ("stage-2 2-rank rank 1 bf16", 1024, 20, 20, bf16, False, True, True),
@@ -1135,7 +1205,17 @@ def kernel_k6(card, rates):
              ("t_loc=w=11 interior", 64, 11, 11, f32, False, False, True),
              ("t_loc=13 w=5 right", 64, 13, 5, f32, False, True, True),
              ("no bias interior", 64, 20, 20, f32, False, False, False),
-             ("256 keys interior", 64, 176, 40, f32, False, False, True)]
+             ("256 keys interior", 64, 176, 40, f32, False, False, True),
+             ("320 keys interior", 64, 240, 40, f32, False, False, True),
+             ("stage-2 2-rank rank 1 f32", 1024, 20, 20, f32, False, True, True),
+             ("4-rank interior bf16", 256, 20, 20, bf16, False, False, True),
+             ("both edges t_loc=40 bf16", 256, 40, 20, bf16, True, True, True),
+             ("sampling 2-rank rank 0 bf16", 64, 100, 40, bf16, True, False, True),
+             ("t_loc=w=11 interior bf16", 64, 11, 11, bf16, False, False, True),
+             ("t_loc=13 w=5 right bf16", 64, 13, 5, bf16, False, True, True),
+             ("no bias interior bf16", 64, 20, 20, bf16, False, False, False),
+             ("256 keys interior bf16", 64, 176, 40, bf16, False, False, True),
+             ("320 keys interior bf16", 64, 240, 40, bf16, False, False, True)]
     for name, n, t_loc, w, dtype, left, right, bias in cases:
         q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, dtype, bias)
         compare(name, n, t_loc, w, dtype,
@@ -1171,6 +1251,39 @@ def kernel_k6(card, rates):
               f"max|ref| (tol 1e-5)", flush=True)
         check(max(errs) <= 1e-5, f"K6 composed T={t} x {ranks} errors {errs}")
 
+    # stripes of 320 keys (t_loc 240, w 40) composed into one sequence of
+    # 480 frames, against the plain backward of the whole sequence: f32 to
+    # 1e-5 of each tensor's largest magnitude (sum order), bf16 to 2e-2 of it
+    # (K4's bf16 tolerance: each halo row adds two bf16 partials)
+    for dtype, tol in ((f32, 1e-5), (bf16, 2e-2)):
+        n, t, ranks, w = 16, 480, 2, 40
+        q, k, v, g, _ = _stripe_inputs(gen, n, t, 0, dtype, bias=False)
+        vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+        t_loc = t // ranks
+        dq, dk, dv = (torch.zeros(n, t + 2 * w, 256, device="cuda") for _ in range(3))
+        dvec = torch.zeros_like(vec)
+        for r in range(ranks):
+            rows = slice(r * t_loc, (r + 1) * t_loc)
+            a, b, c, d = la.local_attention_packed_stripe_bwd(
+                q[:, rows].contiguous(), _stripe(k, r, ranks, w), _stripe(v, r, ranks, w),
+                g[:, rows].contiguous(), vec, w, 8, r == 0, r == ranks - 1)
+            dq[:, w + r * t_loc:w + (r + 1) * t_loc] = a.float()
+            dk[:, r * t_loc:r * t_loc + t_loc + 2 * w] += b.float()
+            dv[:, r * t_loc:r * t_loc + t_loc + 2 * w] += c.float()
+            dvec += d
+        got = [x[:, w:w + t] for x in (dq, dk, dv)] + [dvec]
+        ref = la.local_attention_packed_bwd_plain(q, k, v, g, vec, w, 8)
+        errs = [((a - b.float()).abs().max() / b.float().abs().max()).item()
+                for a, b in zip(got, ref)]
+        print(f"kernel K6 composed {str(dtype)[6:]}: T={t} over {ranks} stripes of {t_loc} "
+              f"({t_loc + 2 * w} keys), N={n}, against the plain version on the whole "
+              f"sequence: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}, dvec "
+              f"{errs[3]:.3e} of max|ref| (tol {tol:g})", flush=True)
+        check(np.isfinite(max(errs)) and max(errs) <= tol,
+              f"K6 composed {dtype} T={t} errors {errs}")
+        del q, k, v, g, dq, dk, dv, got, ref
+        torch.cuda.empty_cache()
+
     # a loss through local_attention_packed_stripe on CUDA tensors must reach
     # q, k, v and the bias vector through K5 forward and K6 backward
     n, t_loc, w = 64, 20, 20
@@ -1191,6 +1304,12 @@ def kernel_k6(card, rates):
 
     n, t_loc, w = 1024, 20, 20                 # rank 0 of the stage-2 2-rank split
     q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, bf16)
+    def call():
+        return la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8, True, False)
+    first, second = call(), call()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "two K6 calls gave different bits")
+    print("kernel K6 bf16: two calls give the same bits", flush=True)
     ms = time_ms(lambda: la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8, True,
                                                               False), 20)
     plain_ms = time_ms(lambda: la.local_attention_packed_stripe_bwd_plain(
@@ -1217,6 +1336,63 @@ def kernel_k6(card, rates):
           f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def window_limits():
+    """Phase: each kernel's largest window (its launch's shared memory, from
+    dawn_local_attn_max_window) in f32 and bf16, and one past it raising the
+    ValueError that names the kernel, the limit and the dtype, before any
+    launch. Tiny tensors: nothing runs on the card."""
+    import torch
+    from dawn_tpu_torch.ops import local_attention as la
+
+    def packed(t, w, dtype, keys=None):
+        x = [torch.zeros(1, t, 256, device="cuda", dtype=dtype)]
+        x += [torch.zeros(1, keys or t, 256, device="cuda", dtype=dtype)] * 2
+        return x + [torch.zeros(8, 2 * w + 1, device="cuda")]
+
+    def split(t, w, dtype):
+        return [torch.zeros(1, 8, t, 32, device="cuda", dtype=dtype)] * 3 + [
+            torch.zeros(8, 2 * w + 1, device="cuda")]
+
+    # (kernel, source, T (K5, K6: t_loc), the call at window w)
+    calls = [
+        (1, "local_attention", 256, lambda w, dt: la.local_attention_packed(
+            *packed(256, w, dt), w, 8)),
+        (2, "local_attention_bwd", 256, lambda w, dt: la.local_attention_packed_bwd(
+            *packed(256, w, dt)[:3], packed(256, w, dt)[0], packed(256, w, dt)[3], w, 8)),
+        (3, "local_attention", 1024, lambda w, dt: la.local_attention_tiled(
+            *split(1024, w, dt), w)),
+        (4, "local_attention_tiled_bwd", 1024, lambda w, dt: la.local_attention_tiled_bwd(
+            *split(1024, w, dt)[:3], split(1024, w, dt)[0], split(1024, w, dt)[3], w)),
+        (5, "local_attention", 128, lambda w, dt: la.local_attention_packed_stripe(
+            *packed(128, w, dt, 128 + 2 * w), w, 8, False, False)),
+        (6, "local_attention_tiled_bwd", 128, lambda w, dt: la.local_attention_packed_stripe_bwd(
+            *packed(128, w, dt, 128 + 2 * w)[:3], packed(128, w, dt)[0],
+            packed(128, w, dt)[3], w, 8, False, False))]
+    parts = []
+    for kernel, source, t, call in calls:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            limit = la._max_window(source, kernel, t, la._DTYPE_FLAG[dtype], kernel in (4, 6),
+                                   torch.cuda.current_device())
+            if limit == 2 ** 31 - 1:
+                check(kernel == 1 and dtype == torch.bfloat16,
+                      f"K{kernel} {name} reports no window limit")
+                parts.append(f"K{kernel} {name} none")
+                continue
+            before = _counts()
+            try:
+                call(limit + 1, dtype)
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            check(f"K{kernel} in {name}" in raised and f"w={limit} " in raised,
+                  f"K{kernel} {name} at w={limit + 1} did not raise its limit: {raised!r}")
+            check(_counts() == before, f"K{kernel} {name} launched past its window limit")
+            parts.append(f"K{kernel} {name} w <= {limit} at T={t}")
+    print("window limits: " + "; ".join(parts) + " (one past each raised its ValueError, "
+          "nothing launched)", flush=True)
 
 
 def seq_sampling(card, mesh):
@@ -1418,9 +1594,13 @@ def main():
     hmma = sass_mma_counts(build)
     for fn, count in sorted(hmma.items()):
         print(f"build: sass {fn}: {count} HMMA", flush=True)
-    for entry in ("attn_fwd_mma_kernel", "bwd_query_mma_kernel", "bwd_key_mma_kernel"):
-        check(any(entry in fn and c > 0 for fn, c in hmma.items()) or not hmma,
-              f"{entry} has no tensor-core instruction")
+    # the forward body (bf16 K1, K5) and both layouts' passes (K4, K6), each
+    # for 4-warp and 2-warp blocks
+    for entry, built in (("attn_fwd_mma_kernel", 2), ("bwd_query_mma_kernel", 4),
+                         ("bwd_key_mma_kernel", 4)):
+        counts = [c for fn, c in hmma.items() if entry in fn]
+        check(not hmma or (len(counts) == built and min(counts) > 0),
+              f"{entry}: {len(counts)} instantiations, HMMA counts {counts}")
 
     def phase(fn, *args, **kw):
         t0 = time.perf_counter()
@@ -1429,6 +1609,7 @@ def main():
               f"({time.perf_counter() - start:.1f} s since start)", flush=True)
         return out
 
+    phase(kernel_routes)
     k1 = phase(kernel_k1, smi, rates)
     phase(parity)
     sample = phase(video_path, smi, 200, timed=True)
@@ -1441,6 +1622,7 @@ def main():
     phase(parity, 264)
     k5 = phase(kernel_k5, smi, rates)
     k6 = phase(kernel_k6, smi, rates)
+    phase(window_limits)
     # a one-rank NCCL process group through a file store (no network)
     import tempfile
     import torch.distributed as dist
@@ -1467,7 +1649,7 @@ def main():
             ("K4 local_attention_tiled_bwd", "local_attention_tiled_bwd.cu", 876, k4,
              "temporal_attention_grad_T400"),
             ("K5 local_attention_packed_stripe", "local_attention.cu", 446, k5, "seq_sample"),
-            ("K6 local_attention_packed_stripe_bwd", "local_attention_bwd.cu", 516, k6,
+            ("K6 local_attention_packed_stripe_bwd", "local_attention_tiled_bwd.cu", 516, k6,
              "seq_train")]
     kernels = [{"name": name, "route": "cuda", "source": f"dawn_tpu_torch/csrc/{src}",
                 "replaces": f"dawn_tpu/ops/local_attention.py:{line}",

@@ -24,13 +24,19 @@
 // shared memory as f32, builds the bias from the (H, 2w+1) vector in shared
 // memory, and writes no score, probability or bias tensor to device memory.
 // One thread owns one query row: scores, the row max and the row sum in f32,
-// p.v accumulated in f32 registers, divided by the row sum once at the end,
-// stored in the input dtype. Unlike the TPU's K3 (left, center and right key
-// tiles of bq >= w rows each, masked), the staged rows are exactly the band's,
-// so any w that fits shared memory works (2*(128+2w)*33*4 B <= 227 KB: w <=
-// 376). (N*H, tiles) go on gridDim.x and y: 256^2 at T=400 has 32768 (n, h)
-// pairs. This body runs on the CUDA cores (no mma), one shared-memory load
-// per FMA; it serves K1, K3 and f32 K5.
+// p.v accumulated in f32 registers, stored in the input dtype. In f32 the
+// row sum divides p.v once at the end. In bf16 (K3 only) the TPU's K3 rounds
+// the normalised P to bf16 before P.V (dawn_tpu/ops/local_attention.py:
+// 149-152), so the first walk keeps the row max and the row sum rescaled as
+// the max grows (one exp a key), and the second rounds p = exp(s - m) / l to
+// bf16 before p.v, with no division at the end (the kRoundP flag). Unlike
+// the TPU's K3 (left, center and right key tiles of bq >= w rows each,
+// masked), the staged rows are exactly the band's, so any w that fits shared
+// memory works ((2*(128+2w)*33 + 2w+1)*4 B <= 227 KB: w <= 370 at long T;
+// the wrapper asks dawn_local_attn_max_window and raises past it). (N*H, tiles)
+// go on gridDim.x and y: 256^2 at T=400 has 32768 (n, h) pairs. This body
+// runs on the CUDA cores (no mma), one shared-memory load per FMA; it serves
+// K3 and f32 K1 and K5.
 //
 // K5 replaces the body launched by local_attention_packed_stripe (K1's
 // Pallas body on a rectangular block) in the packed layout: the t_loc
@@ -51,9 +57,13 @@
 // entry j - key_off - i + w. K1 and K3: key_off 0, keys [0, T). K5: key_off
 // w, keys [w or 0, w + t_loc - 1 or t_loc + 2w - 1] by the edge flags.
 //
-// bf16 K5 runs the tensor-core body (attn_fwd_mma_kernel, packed layout);
-// f32 K5, K1 and K3 keep the CUDA-core body. The C entry dispatches on
-// is_bf16.
+// bf16 K1 and K5 run the tensor-core body (attn_fwd_mma_kernel, packed
+// layout); K3 and f32 K1 and K5 keep the CUDA-core body. The C entries
+// dispatch on is_bf16. K1 clamps the band to the keys that exist: with
+// w_eff = min(w, T - 1), [i - w_eff, i + w_eff] cut to [0, T) holds the same
+// keys as [i - w, i + w], and the kernel reads the bias entries [w - w_eff,
+// w + w_eff] of each head's row (bias_ld = 2w + 1 apart), so K1 takes any w
+// and stage 1's w = 20 at T = 20 walks 19 keys a side.
 // What bounds bf16 K5: bytes. At rank 0 of the 2-rank split it must move
 // 251.7 MB, 75 us, against about 7.6 GFLOP of tensor work
 // even with each warp's band padded to whole k16 steps, under 10 us at the
@@ -75,8 +85,10 @@
 // mma.sync and not wgmma: the kernel is bytes-bound with tensor throughput
 // to spare, and wgmma's 64-row tiles would make a warpgroup cover a
 // 64 + 2w = 144-key band where four 16-row warps need 96 keys each.
-// Any w with (64 + 2 * staged_rows(w)) * 80 B + (2w + 1) * 4 B <= 227 KB
-// works: w <= 663.
+// Any w with (64 + 2 * staged_rows(w, 4)) * 80 B + (2w + 1) * 4 B <= 227 KB
+// works: w <= 656 for K5, any w for K1 (w_eff <= 255). Rows that all fit
+// in 32 (stage 1's T = 20) take blocks of 2 warps (tile_warps), so no warp
+// idles and twice as many blocks fit an SM.
 //
 // C interface (bound with ctypes):
 //   int dawn_local_attn_packed_fwd(q, k, v, bias, out, n, t, heads, dim_head,
@@ -87,15 +99,19 @@
 //                                  dim_head, window, left_edge, right_edge,
 //                                  is_bf16, stream)             K5, q (N, t_loc, H*D),
 //                                                               k, v (N, t_loc + 2w, H*D);
-//                                                               bf16 on tensor cores
+//   (K1 and K5: bf16 on tensor cores)
 // each returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a dim_head it was not built for.
+// cudaErrorInvalidValue for a dim_head it was not built for;
+//   int dawn_local_attn_max_window(kernel, t, is_bf16, with_bias_grad)
+// returns the largest window that kernel 1, 3 or 5 takes at T = t (K5: t_loc)
+// on the current device, INT_MAX for no limit, -1 for another kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -117,8 +133,8 @@ struct KeyRange {
 };
 
 // kPacked: the (N, T, H*D) layout, grid (N, H, tiles); else (N, H, T, D),
-// grid (N*H, tiles).
-template <typename T, int D, bool kPacked>
+// grid (N*H, tiles). kRoundP: the normalised P rounded to T before P.V.
+template <typename T, int D, bool kPacked, bool kRoundP>
 __global__ void __launch_bounds__(kQueryTile)
 local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ bias,
@@ -162,28 +178,49 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) qr[d] = to_f32(q[row + d]);
   const int c = i + kr.key_off;    // the key row at offset 0
   const int j0 = max(c - window, kr.kmin), j1 = min(c + window, kr.kmax);
-
-  // pass 1: the row max of the in-band scores
-  float m = -INFINITY;
-  for (int j = j0; j <= j1; ++j) {
+  auto score = [&](int j) {
     const float* krow = ks + (j - k0) * kStride;
     float s = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) s = fmaf(qr[d], krow[d], s);
-    m = fmaxf(m, s + bs[j - c + window]);
-  }
-  // pass 2: exp, row sum and p.v
+    return s + bs[j - c + window];
+  };
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
+
+  if (kRoundP) {
+    // walk 1: the row max m and the row sum l, rescaled when m grows
+    float m = -INFINITY, l = 0.f;
+    for (int j = j0; j <= j1; ++j) {
+      const float s = score(j);
+      if (s > m) {
+        l = fmaf(l, expf(m - s), 1.f);
+        m = s;
+      } else {
+        l += expf(s - m);
+      }
+    }
+    // walk 2: p = exp(s - m) / l rounded to T, then p.v
+    const float inv = 1.f / l;
+    for (int j = j0; j <= j1; ++j) {
+      const float p = to_f32(from_f32<T>(expf(score(j) - m) * inv));
+      const float* vrow = vs + (j - k0) * kStride;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vrow[d], acc[d]);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[row + d] = from_f32<T>(acc[d]);
+    return;
+  }
+  // pass 1: the row max of the in-band scores
+  float m = -INFINITY;
+  for (int j = j0; j <= j1; ++j) m = fmaxf(m, score(j));
+  // pass 2: exp, row sum and p.v
   float l = 0.f;
   for (int j = j0; j <= j1; ++j) {
-    const float* krow = ks + (j - k0) * kStride;
+    const float p = expf(score(j) - m);
     const float* vrow = vs + (j - k0) * kStride;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) s = fmaf(qr[d], krow[d], s);
-    const float p = expf(s + bs[j - c + window] - m);
     l += p;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vrow[d], acc[d]);
@@ -193,14 +230,20 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) out[row + d] = from_f32<T>(acc[d] * inv);
 }
 
-template <typename T, int D, bool kPacked>
+// Dynamic shared memory of a CUDA-core launch over seq_k key rows: the key
+// and value rows one tile's band touches, as f32, and the bias row.
+template <int D>
+size_t fwd_smem(int seq_k, int window) {
+  const size_t rows = min(seq_k, kQueryTile + 2 * window);
+  return (2 * rows * (D + 1) + (2 * (size_t)window + 1)) * sizeof(float);
+}
+
+template <typename T, int D, bool kPacked, bool kRoundP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    void* out, int n, int seq_q, KeyRange kr, int heads, int window,
                    cudaStream_t stream) {
-  const int rows_max = min(kr.seq_k, kQueryTile + 2 * window);
-  const size_t smem =
-      (2 * (size_t)rows_max * (D + 1) + (2 * (size_t)window + 1)) * sizeof(float);
-  auto kernel = local_attn_fwd_kernel<T, D, kPacked>;
+  const size_t smem = fwd_smem<D>(kr.seq_k, window);
+  auto kernel = local_attn_fwd_kernel<T, D, kPacked, kRoundP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -274,18 +317,22 @@ __device__ __forceinline__ void fwd_chunk(RowState& st, const uint32_t (&qa)[2][
   }
 }
 
-// The tensor-core body, bf16, packed (N, T, H*D) layout: one block per
-// (sequence, head, 64-row query tile), numbered tile-fastest.
-__global__ void __launch_bounds__(128)
+// The tensor-core body, bf16, packed (N, T, H*D) layout: one block of kWarps
+// warps per (sequence, head, 64-row query tile), numbered tile-fastest
+// (kWarps = 2 when seq_q <= 32). Head h's 2w+1 bias entries start at bias +
+// h * bias_ld.
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ out, int seq_q, KeyRange kr, int heads,
-                    int window, int tiles) {
+                    int bias_ld, __nv_bfloat16* __restrict__ out, int seq_q, KeyRange kr,
+                    int heads, int window, int tiles) {
   using namespace dawn_mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int staged = staged_rows(window), nbias = 2 * window + 1;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // 64 x kLd
-  __nv_bfloat16* ks = qs + 64 * kLd;                                  // staged x kLd
+  constexpr int rows_q = 16 * kWarps;
+  const int staged = staged_rows(window, kWarps), nbias = 2 * window + 1;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // rows_q x kLd
+  __nv_bfloat16* ks = qs + rows_q * kLd;                              // staged x kLd
   __nv_bfloat16* vs = ks + staged * kLd;
   float* bs = reinterpret_cast<float*>(vs + staged * kLd);
 
@@ -297,12 +344,12 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const __nv_bfloat16* qg = q + seq * seq_q * ld + head_off;
   __nv_bfloat16* og = out + seq * seq_q * ld + head_off;
   const size_t k_base = seq * kr.seq_k * ld + head_off;
-  stage_rows(qs, qg, ld, q0, 64, q0, q0 + nq - 1);
+  stage_rows(qs, qg, ld, q0, rows_q, q0, q0 + nq - 1);
   const int k_lo = max(kb, kr.kmin), k_hi = min(q0 + nq - 1 + kr.key_off + window, kr.kmax);
   stage_rows(ks, k + k_base, ld, kb, staged, k_lo, k_hi);
   stage_rows(vs, v + k_base, ld, kb, staged, k_lo, k_hi);
   for (int e = threadIdx.x; e < nbias; e += blockDim.x)
-    bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
+    bs[e] = bias != nullptr ? bias[(size_t)h * bias_ld + e] : 0.f;
   cp_async_wait_all();
   __syncthreads();
 
@@ -334,35 +381,31 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   store_rows(og, ld, q0 + 16 * warp, nq - 16 * warp, st.o, qs + 16 * warp * kLd, lane);
 }
 
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias,
-                       void* out, int n, int seq_q, KeyRange kr, int heads, int window,
-                       cudaStream_t stream) {
-  const size_t smem = (64 + 2 * (size_t)dawn_mma::staged_rows(window)) * dawn_mma::kLd *
-                          sizeof(__nv_bfloat16) +
-                      (2 * (size_t)window + 1) * sizeof(float);
-  auto kernel = attn_fwd_mma_kernel;
+// Dynamic shared memory of a tensor-core launch of `warps` warps: the query
+// tile, the band's key and value rows in bf16, and the bias row.
+size_t mma_smem(int window, int warps) {
+  return (16 * warps + 2 * (size_t)dawn_mma::staged_rows(window, warps)) * dawn_mma::kLd *
+             sizeof(__nv_bfloat16) +
+         (2 * (size_t)window + 1) * sizeof(float);
+}
+
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
+                       int bias_ld, void* out, int n, int seq_q, KeyRange kr, int heads,
+                       int window, cudaStream_t stream) {
+  const int warps = dawn_mma::tile_warps(seq_q);
+  const size_t smem = mma_smem(window, warps);
+  auto kernel = warps == 2 ? attn_fwd_mma_kernel<2> : attn_fwd_mma_kernel<4>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (seq_q + 63) / 64;
   const long long blocks = (long long)n * heads * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, 128, smem, stream>>>(
+  kernel<<<(unsigned)blocks, 32 * warps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(v), bias, bias_ld,
       static_cast<__nv_bfloat16*>(out), seq_q, kr, heads, window, tiles);
   return cudaGetLastError();
-}
-
-template <bool kPacked>
-int launch_any(const void* q, const void* k, const void* v, const void* bias, void* out,
-               int n, int seq_q, KeyRange kr, int heads, int dim_head, int window,
-               int is_bf16, void* stream) {
-  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch<__nv_bfloat16, 32, kPacked>(q, k, v, bias, out, n, seq_q, kr, heads, window, s)
-      : launch<float, 32, kPacked>(q, k, v, bias, out, n, seq_q, kr, heads, window, s));
 }
 
 }  // namespace
@@ -371,16 +414,27 @@ extern "C" int dawn_local_attn_packed_fwd(const void* q, const void* k, const vo
                                           const void* bias, void* out, int n, int t,
                                           int heads, int dim_head, int window,
                                           int is_bf16, void* stream) {
-  return launch_any<true>(q, k, v, bias, out, n, t, KeyRange{t, 0, 0, t - 1}, heads,
-                          dim_head, window, is_bf16, stream);
+  if (dim_head != 32 || window < 0 || t < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const KeyRange kr{t, 0, 0, t - 1};
+  if (!is_bf16)
+    return (int)launch<float, 32, true, false>(q, k, v, bias, out, n, t, kr, heads, window, s);
+  const int w_eff = min(window, t - 1);   // the same keys, the bias entries [w - w_eff, ...]
+  const float* b = bias != nullptr ? static_cast<const float*>(bias) + (window - w_eff) : nullptr;
+  return (int)launch_mma(q, k, v, b, 2 * window + 1, out, n, t, kr, heads, w_eff, s);
 }
 
 extern "C" int dawn_local_attn_tiled_fwd(const void* q, const void* k, const void* v,
                                          const void* bias, void* out, int n, int t,
                                          int heads, int dim_head, int window,
                                          int is_bf16, void* stream) {
-  return launch_any<false>(q, k, v, bias, out, n, t, KeyRange{t, 0, 0, t - 1}, heads,
-                           dim_head, window, is_bf16, stream);
+  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const KeyRange kr{t, 0, 0, t - 1};
+  return (int)(is_bf16 ? launch<__nv_bfloat16, 32, false, true>(q, k, v, bias, out, n, t, kr,
+                                                                 heads, window, s)
+                       : launch<float, 32, false, false>(q, k, v, bias, out, n, t, kr, heads,
+                                                         window, s));
 }
 
 extern "C" int dawn_local_attn_stripe_fwd(const void* q, const void* k, const void* v,
@@ -388,13 +442,34 @@ extern "C" int dawn_local_attn_stripe_fwd(const void* q, const void* k, const vo
                                           int heads, int dim_head, int window,
                                           int left_edge, int right_edge, int is_bf16,
                                           void* stream) {
+  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int seq_k = t_loc + 2 * window;
   const KeyRange kr{seq_k, window, left_edge ? window : 0,
                     right_edge ? window + t_loc - 1 : seq_k - 1};
   if (!is_bf16)
-    return launch_any<true>(q, k, v, bias, out, n, t_loc, kr, heads, dim_head, window, 0,
-                            stream);
-  if (dim_head != 32 || window < 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_mma(q, k, v, bias, out, n, t_loc, kr, heads, window,
-                               static_cast<cudaStream_t>(stream));
+    return (int)launch<float, 32, true, false>(q, k, v, bias, out, n, t_loc, kr, heads,
+                                               window, s);
+  return (int)launch_mma(q, k, v, static_cast<const float*>(bias), 2 * window + 1, out, n,
+                         t_loc, kr, heads, window, s);
+}
+
+extern "C" int dawn_local_attn_max_window(int kernel, int t, int is_bf16, int with_bias_grad) {
+  (void)with_bias_grad;   // a forward computes no bias gradient
+  using dawn_limits::max_window;
+  if (t < 1) return -1;
+  switch (kernel) {
+    case 1:
+      return is_bf16 ? max_window([t](int w) {
+                         return mma_smem(min(w, t - 1), dawn_mma::tile_warps(t));
+                       })
+                     : max_window([t](int w) { return fwd_smem<32>(t, w); });
+    case 3:
+      return max_window([t](int w) { return fwd_smem<32>(t, w); });
+    case 5:
+      return is_bf16 ? max_window([t](int w) { return mma_smem(w, dawn_mma::tile_warps(t)); })
+                     : max_window([t](int w) { return fwd_smem<32>(t + 2 * w, w); });
+    default:
+      return -1;
+  }
 }

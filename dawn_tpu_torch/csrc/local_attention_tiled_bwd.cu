@@ -1,83 +1,131 @@
-// K4: windowed temporal attention, backward, (N, H, T, D) layout, any T.
+// K4 and K6: windowed temporal attention, backward, tiled.
 //
-// Replaces dawn_tpu/ops/local_attention.py::_local_attn_tile_bwd_kernel (the
-// Pallas TPU body launched by _tiled_bwd_pallas, the VJP of
-// _local_attention_tpu), the backward of K3. With p the softmax rows of the
-// forward,
-//     p[i, j] = softmax_j(q_i . k_j + bias[h, j - i + w]) over |j - i| <= w,
-// and g the gradient of the output, it computes for every (sequence, head)
+// K4 replaces dawn_tpu/ops/local_attention.py::_local_attn_tile_bwd_kernel
+// (the Pallas TPU body launched by _tiled_bwd_pallas, the VJP of
+// _local_attention_tpu), the backward of K3, on the (N, H, T, D) layout, any
+// T. K6 replaces the stripe backward (_stripe_bwd_pallas, K2's Pallas body on
+// the rectangular block of local_attention_packed_stripe, the VJP of
+// local_attention_packed_stripe_tpu), the backward of K5, on the packed
+// (N, T, H*D) layout: the t_loc queries of one rank against its t_loc + 2w
+// haloed keys. With p the softmax rows of the forward,
+//     p[i, j] = softmax_j(q_i . k_j + bias[h, j - i + w]) over the band,
+// and g the gradient of the output, both compute for every (sequence, head)
 //     dv_j = sum_i p_ij g_i
 //     ds_ij = p_ij (g_i . v_j - delta_i),  delta_i = sum_j p_ij (g_i . v_j)
 //     dq_i = sum_j ds_ij k_j,   dk_j = sum_i ds_ij q_i
 // and the gradient of the (H, 2w+1) bias vector, dbias[h, r] = the sum over
 // sequences and queries of ds[i, i + r - w]. Keys outside the band or
-// outside [0, T) have p = 0 and so ds = 0; they are not visited.
+// outside the valid key rows have p = 0 and so ds = 0; they are not visited.
 //
-// What bounds it on an H100: memory. At the top UNet level of a 128^2
+// One key range covers both, as in the forward bodies (local_attention.cu):
+// query row i sees the key rows j in [i + key_off - w, i + key_off + w] cut
+// to [kmin, kmax], with the bias entry j - key_off - i + w. K4: key_off 0,
+// keys [0, T). K6: key_off w, keys [w or 0, w + t_loc - 1 or t_loc + 2w - 1]
+// by the global-edge flags of K5; the masked key rows get dk = dv = 0. The
+// TPU's K6 returns the raw (H, tq, tk) dS tile and leaves its reduction to
+// the autodiff of the bias construction; the edge masks are constants and
+// masked keys have p = 0, so reducing dS to diagonals here gives the same
+// T5-vector gradient. The layouts differ only in where row r of a
+// (sequence, head) sits (head_base): n*T*H*D + h*D + r*H*D packed, (n*H +
+// h)*T*D + r*D otherwise.
+//
+// What bounds it on an H100: memory. K4 at the top UNet level of a 128^2
 // 400-frame video (N*H = 1024*8 sequence-heads, T = 400, D = 32, w = 40,
-// bf16) it reads q, k, v, g and writes dq, dk, dv: 7 x 210 MB = 1.47 GB,
-// about 0.44 ms at the H100 SXM's 3.35 TB/s; the five products over the
-// band's 30,760 (query, key) pairs a sequence-head come to 81 GFLOP, 0.08 ms
-// at the 989 TFLOP/s bf16 peak.
-// What the design does about it: K2 keeps a whole sequence in shared memory,
-// which at T = 400 (four f32 (T, 33) arrays, 211 KB) no longer fits beside
-// anything else, and at T = 800 not at all. K4 tiles the sequence instead,
-// in two launches on the caller's stream, kTile = 64 rows a block:
+// bf16) reads q, k, v, g and writes dq, dk, dv: 7 x 210 MB = 1.47 GB, about
+// 0.44 ms at the H100 SXM's 3.35 TB/s; the five products over the band's
+// 30,760 (query, key) pairs a sequence-head come to 81 GFLOP, 0.08 ms at the
+// 989 TFLOP/s bf16 peak. K6 at the stage-2 stripe (N = 1024, t_loc = 20, 60
+// keys, w = 20, bf16, left edge) moves q, g, dq (10.5 MB each), the k, v
+// rows the edge leaves and dk, dv over every haloed row: 136 MB, 0.041 ms.
+// What the design does about it: no sequence is held whole in shared memory
+// (K2's design, which caps a sequence or stripe at 256 keys). The rows are
+// tiled instead, in two launches on the caller's stream, kTile = 64 rows a
+// block:
 //   A. query tiles: a block stages the key/value rows its queries' bands
-//      touch, [q0-w, q1-1+w] cut to [0, T). It finds each row's log-sum-exp
-//      and delta_i (online rescaling), then walks the band again for dS and
-//      dq_i. It writes dq, the two row statistics (lse, delta) to a (2, N*H,
-//      T) f32 scratch, and its f32 dS rows into shared memory, whose columns
-//      the block sums in query order into one (2w+1) bias partial per
-//      (sequence, head, tile).
+//      touch. It finds each row's log-sum-exp and delta_i (online
+//      rescaling), then walks the band again for dS and dq_i. It writes dq,
+//      the two row statistics (lse, delta) to a (2, N*H, TQ) f32 scratch,
+//      and its f32 dS rows into shared memory, whose columns the block sums
+//      in query order into one (2w+1) bias partial per (sequence, head,
+//      tile).
 //   B. key tiles: a block stages the query and gradient rows whose bands
-//      touch its keys, [k0-w, k1-1+w], with their row statistics from A, and
-//      recomputes p = exp(s - lse) and ds to sum dk_j and dv_j. One block
-//      owns each key row, so no atomics: the gradients of a key row that
-//      several query tiles see are summed in one place.
+//      touch its keys, with their row statistics from A, and recomputes p =
+//      exp(s - lse) and ds to sum dk_j and dv_j. One block owns each key
+//      row, so no atomics: the gradients of a key row that several query
+//      tiles see are summed in one place.
 // The caller sums the bias partials over sequences and tiles in a fixed
 // order, so the result does not change from run to run. The TPU kernel's
 // per-tile left/center/right dk/dv buffers and shifted adds are not needed.
 //
 // f32 runs on the CUDA cores: one thread a row, the band walked twice in A
-// and once in B, one shared load per FMA (215 registers a thread in B).
-// bf16 runs on the tensor cores, the same two passes with 4 warps of 16 rows
-// a block: q, g (A) or k, v (B) tiles and the band's rows staged in bf16
-// with 16-byte cp.async, zeros outside [0, T); every product on mma.sync
-// m16n8k16 with ldmatrix fragments (mma_bf16.cuh). A: S = Q K^T and dP =
-// dO V^T over the band in chunks of 32 keys with an online max, sum and
-// sum of p dp (so registers do not grow with w); then again for P = exp(S -
-// lse), dS = P (dP - delta), dQ = dS K, with dS rounded to bf16 for the
-// product (JAX's dsk) and the f32 dS written to the bias rows (JAX sums the
-// f32 ds). B: S^T = K Q^T, P^T = exp(S^T + bias - lse), dV = P^T dO with P
-// rounded to bf16 (JAX's pk), dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK =
-// dS^T Q with dS rounded to bf16. The C fragments of one product, packed to
-// bf16, are the A fragments of the next, so P and dS never leave registers.
-// Blocks are numbered tile-fastest, so the tiles of one (sequence, head),
-// whose bands share 2w rows, run side by side and meet those rows in L2.
-// The C entry dispatches on is_bf16.
+// and once in B, one shared load per FMA. bf16 runs on the tensor cores, the
+// same two passes with 4 warps of 16 rows a block (2 when all of a pass's
+// rows fit in 32, as the stage-2 stripe's 20 queries do): q, g (A) or k, v (B)
+// tiles and the band's rows staged in bf16 with 16-byte cp.async, zeros
+// outside the valid rows; every product on mma.sync m16n8k16 with ldmatrix
+// fragments (mma_bf16.cuh). A: S = Q K^T and dP = dO V^T over the band in
+// chunks of 32 keys with an online max, sum and sum of p dp (so registers
+// do not grow with w); then again for P = exp(S - lse), dS = P (dP -
+// delta), dQ = dS K, with dS rounded to bf16 for the product (JAX's dsk)
+// and the f32 dS written to the bias rows (JAX sums the f32 ds). B: S^T = K
+// Q^T, P^T = exp(S^T + bias - lse), dV = P^T dO with P rounded to bf16
+// (JAX's pk), dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK = dS^T Q with dS
+// rounded to bf16. The C fragments of one product, packed to bf16, are the
+// A fragments of the next, so P and dS never leave registers. Blocks are
+// numbered tile-fastest, so the tiles of one (sequence, head), whose bands
+// share 2w rows, run side by side and meet those rows in L2. The C entries
+// dispatch on is_bf16; each kernel is built for both layouts (kPacked).
 //
 // C interface (bound with ctypes):
 //   int dawn_local_attn_tiled_bwd(q, k, v, g, bias, dq, dk, dv, dbias_partial,
 //                                 stats, n, t, heads, dim_head, window, is_bf16,
-//                                 stream)
+//                                 stream)                               K4
+//   int dawn_local_attn_stripe_bwd(q, k, v, g, bias, dq, dk, dv, dbias_partial,
+//                                  stats, n, t_loc, heads, dim_head, window,
+//                                  left_edge, right_edge, is_bf16, stream)  K6,
+//        q, g, dq (N, t_loc, H*D); k, v, dk, dv (N, t_loc + 2w, H*D)
 // bias may be null (no bias: zeros) and dbias_partial may be null (no bias
-// gradient wanted); otherwise dbias_partial is (N*H, ceil(T/kTile), 2w+1)
-// f32, with kTile as dawn_local_attn_tiled_bwd_tile() returns it. stats is
-// (2, N*H, T) f32 scratch. With a bias partial, bf16 takes any w with
-// (128 + 2 * staged_rows(w)) * 80 B + 65 * (2w + 1) * 4 B <= 227 KB (w <=
-// 249), f32 any w <= 205. Returns cudaGetLastError() after the launches (0
-// on success), or cudaErrorInvalidValue for a shape it was not built for.
+// gradient wanted); otherwise dbias_partial is (N*H, ceil(TQ/kTile), 2w+1)
+// f32, TQ the query rows (T or t_loc), with kTile as
+// dawn_local_attn_tiled_bwd_tile() returns it. stats is (2, N*H, TQ) f32
+// scratch. Both return cudaGetLastError() after the launches (0 on
+// success), or cudaErrorInvalidValue for a shape they were not built for.
+//   int dawn_local_attn_max_window(kernel, t, is_bf16, with_bias_grad)
+// returns the largest window kernel 4 (T = t) or 6 (t_loc = t) takes on the
+// current device, -1 for another kernel: with a bias partial, bf16 takes
+// (128 + 2 * staged_rows(w, 4)) * 80 B + 65 * (2w + 1) * 4 B <= 227 KB (w <=
+// 249), f32 w <= 205 at long T.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
 constexpr int kTile = 64;  // rows per block in both passes (f32: one thread a row)
+
+// The key rows a (sequence, head) has: seq_k rows of which [kmin, kmax] are
+// valid, query row i's band centred on key row i + key_off.
+struct KeyRange {
+  int seq_k, key_off, kmin, kmax;
+};
+
+// Row r of sequence-head nh in a tensor of `rows` rows a sequence sits at
+// head_base + r * row_stride.
+template <int D, bool kPacked>
+__device__ __forceinline__ size_t head_base(int nh, int heads, int rows) {
+  return kPacked ? ((size_t)(nh / heads) * rows * heads + nh % heads) * D
+                 : (size_t)nh * rows * D;
+}
+template <int D, bool kPacked>
+__device__ __forceinline__ size_t row_stride(int heads) {
+  return kPacked ? (size_t)heads * D : D;
+}
 
 template <int D>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
@@ -87,58 +135,62 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// Rows [r0, r0 + rows) of one (sequence, head) into shared memory, padded to
-// D+1 floats: the threads of a warp read different rows at the same column,
-// and the padding puts them in distinct banks.
+// Rows [r0, r0 + rows) of one (sequence, head), row i at src + i * ld, into
+// shared memory padded to D+1 floats: the threads of a warp read different
+// rows at the same column, and the padding puts them in distinct banks.
 template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int r0,
-                                      int rows) {
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, size_t ld,
+                                      int r0, int rows) {
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x)
-    dst[(e / D) * (D + 1) + e % D] = src[(size_t)r0 * D + e];
+    dst[(e / D) * (D + 1) + e % D] = src[(size_t)(r0 + e / D) * ld + e % D];
 }
 
 // Pass A in f32: one block per (sequence-head, query tile).
-template <int D>
+template <int D, bool kPacked>
 __global__ void __launch_bounds__(kTile)
 tiled_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ g,
                        const float* __restrict__ bias, float* __restrict__ dq,
                        float* __restrict__ dbias_partial, float* __restrict__ stats,
-                       int seq_len, int heads, int window) {
+                       int seq_q, KeyRange kr, int heads, int window) {
   extern __shared__ float smem[];
   constexpr int kStride = D + 1;
-  const int t = seq_len, nbias = 2 * window + 1;
+  const int nbias = 2 * window + 1;
   const int nh = blockIdx.x, h = nh % heads;
-  const int q0 = blockIdx.y * kTile, q1 = min(q0 + kTile, t);  // q1 exclusive
-  const int k0 = max(q0 - window, 0), k1 = min(q1 - 1 + window, t - 1);
+  const int q0 = blockIdx.y * kTile, q1 = min(q0 + kTile, seq_q);  // q1 exclusive
+  const int k0 = max(q0 + kr.key_off - window, kr.kmin);
+  const int k1 = min(q1 - 1 + kr.key_off + window, kr.kmax);
   const int rows = k1 - k0 + 1;
   float* ks = smem;
   float* vs = ks + rows * kStride;
   float* bs = vs + rows * kStride;
   float* ds_rows = bs + nbias;  // (kTile, 2w+1) when a bias partial is wanted
 
-  const size_t base = (size_t)nh * t * D;
-  stage<D>(ks, k + base, k0, rows);
-  stage<D>(vs, v + base, k0, rows);
+  const size_t ld = row_stride<D, kPacked>(heads);
+  const size_t q_base = head_base<D, kPacked>(nh, heads, seq_q);
+  const size_t k_base = head_base<D, kPacked>(nh, heads, kr.seq_k);
+  stage<D>(ks, k + k_base, ld, k0, rows);
+  stage<D>(vs, v + k_base, ld, k0, rows);
   for (int e = threadIdx.x; e < nbias; e += blockDim.x)
     bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
   __syncthreads();
 
   const int i = q0 + threadIdx.x;
   if (i < q1) {
-    const size_t row = base + (size_t)i * D;
+    const size_t row = q_base + (size_t)i * ld;
     float qi[D], gi[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       qi[d] = q[row + d];
       gi[d] = g[row + d];
     }
-    const int j0 = max(i - window, 0), j1 = min(i + window, t - 1);
+    const int c = i + kr.key_off;    // the key row at offset 0: bias entry j - c + w
+    const int j0 = max(c - window, kr.kmin), j1 = min(c + window, kr.kmax);
     // walk 1: row max m, row sum l and sum_j p_ij (g_i . v_j), rescaled
     // whenever the max grows
     float m = -INFINITY, l = 0.f, pdp = 0.f;
     for (int j = j0; j <= j1; ++j) {
-      const float s = dot<D>(qi, ks + (j - k0) * kStride) + bs[j - i + window];
+      const float s = dot<D>(qi, ks + (j - k0) * kStride) + bs[j - c + window];
       const float dp = dot<D>(gi, vs + (j - k0) * kStride);
       const float m_new = fmaxf(m, s);
       const float corr = expf(m - m_new), p = expf(s - m_new);
@@ -156,16 +208,16 @@ tiled_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < D; ++d) acc[d] = 0.f;
     for (int j = j0; j <= j1; ++j) {
       const float* kj = ks + (j - k0) * kStride;
-      const float s = dot<D>(qi, kj) + bs[j - i + window];
+      const float s = dot<D>(qi, kj) + bs[j - c + window];
       const float p = expf(s - lse);
       const float ds = p * (dot<D>(gi, vs + (j - k0) * kStride) - delta);
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kj[d], acc[d]);
-      if (ds_row != nullptr) ds_row[j - i + window] = ds;
+      if (ds_row != nullptr) ds_row[j - c + window] = ds;
     }
 #pragma unroll
     for (int d = 0; d < D; ++d) dq[row + d] = acc[d];
-    const size_t plane = (size_t)gridDim.x * t, at = (size_t)nh * t + i;
+    const size_t plane = (size_t)gridDim.x * seq_q, at = (size_t)nh * seq_q + i;
     stats[at] = lse;
     stats[plane + at] = delta;
   }
@@ -183,19 +235,20 @@ tiled_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Pass B in f32: one block per (sequence-head, key tile), after pass A.
-template <int D>
+template <int D, bool kPacked>
 __global__ void __launch_bounds__(kTile)
 tiled_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ bias, const float* __restrict__ stats,
-                     float* __restrict__ dk, float* __restrict__ dv, int seq_len, int heads,
-                     int window) {
+                     float* __restrict__ dk, float* __restrict__ dv, int seq_q, KeyRange kr,
+                     int heads, int window) {
   extern __shared__ float smem[];
   constexpr int kStride = D + 1;
-  const int t = seq_len, nbias = 2 * window + 1;
+  const int nbias = 2 * window + 1;
   const int nh = blockIdx.x, h = nh % heads;
-  const int k0 = blockIdx.y * kTile, k1 = min(k0 + kTile, t);  // k1 exclusive
-  const int i0 = max(k0 - window, 0), i1 = min(k1 - 1 + window, t - 1);
+  const int k0 = blockIdx.y * kTile, k1 = min(k0 + kTile, kr.seq_k);  // k1 exclusive
+  const int i0 = max(k0 - kr.key_off - window, 0);
+  const int i1 = min(k1 - 1 - kr.key_off + window, seq_q - 1);
   const int rows = i1 - i0 + 1;
   float* qs = smem;
   float* gs = qs + rows * kStride;
@@ -203,10 +256,12 @@ tiled_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* row_delta = row_lse + rows;
   float* bs = row_delta + rows;
 
-  const size_t base = (size_t)nh * t * D;
-  stage<D>(qs, q + base, i0, rows);
-  stage<D>(gs, g + base, i0, rows);
-  const size_t plane = (size_t)gridDim.x * t, at = (size_t)nh * t + i0;
+  const size_t ld = row_stride<D, kPacked>(heads);
+  const size_t q_base = head_base<D, kPacked>(nh, heads, seq_q);
+  const size_t k_base = head_base<D, kPacked>(nh, heads, kr.seq_k);
+  stage<D>(qs, q + q_base, ld, i0, rows);
+  stage<D>(gs, g + q_base, ld, i0, rows);
+  const size_t plane = (size_t)gridDim.x * seq_q, at = (size_t)nh * seq_q + i0;
   for (int e = threadIdx.x; e < rows; e += blockDim.x) {
     row_lse[e] = stats[at + e];
     row_delta[e] = stats[plane + at + e];
@@ -217,7 +272,7 @@ tiled_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int j = k0 + threadIdx.x;
   if (j >= k1) return;
-  const size_t row = base + (size_t)j * D;
+  const size_t row = k_base + (size_t)j * ld;
   float kj[D], vj[D], dk_acc[D], dv_acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -225,12 +280,15 @@ tiled_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
     vj[d] = v[row + d];
     dk_acc[d] = dv_acc[d] = 0.f;
   }
-  const int ia = max(j - window, 0), ib = min(j + window, t - 1);
+  // the queries whose band holds key row j (none for a masked row)
+  const bool valid = j >= kr.kmin && j <= kr.kmax;
+  const int ia = valid ? max(j - kr.key_off - window, 0) : 0;
+  const int ib = valid ? min(j - kr.key_off + window, seq_q - 1) : -1;
   for (int i = ia; i <= ib; ++i) {
     const int r = i - i0;
     const float* qi = qs + r * kStride;
     const float* gi = gs + r * kStride;
-    const float s = dot<D>(qi, kj) + bs[j - i + window];
+    const float s = dot<D>(qi, kj) + bs[j - kr.key_off - i + window];
     const float p = expf(s - row_lse[r]);
     const float ds = p * (dot<D>(gi, vj) - row_delta[r]);
 #pragma unroll
@@ -246,36 +304,50 @@ tiled_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Dynamic shared memory of the f32 passes: A stages the key/value rows of a
+// query tile's bands (at most seq_k), B the query/gradient rows and their
+// statistics of a key tile's (at most seq_q).
 template <int D>
+size_t f32_smem_a(int seq_k, int window, bool bias_grad) {
+  const size_t rows = min(seq_k, kTile + 2 * window), nbias = 2 * (size_t)window + 1;
+  return (2 * rows * (D + 1) + nbias + (bias_grad ? kTile * nbias : 0)) * sizeof(float);
+}
+template <int D>
+size_t f32_smem_b(int seq_q, int window) {
+  const size_t rows = min(seq_q, kTile + 2 * window), nbias = 2 * (size_t)window + 1;
+  return (2 * rows * (D + 1) + 2 * rows + nbias) * sizeof(float);
+}
+
+template <int D, bool kPacked>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* g,
                        const void* bias, void* dq, void* dk, void* dv, void* dbias_partial,
-                       void* stats, int n, int t, int heads, int window,
+                       void* stats, int n, int seq_q, KeyRange kr, int heads, int window,
                        cudaStream_t stream) {
-  const size_t rows_max = min(t, kTile + 2 * window), nbias = 2 * (size_t)window + 1;
-  const size_t smem_a = (2 * rows_max * (D + 1) + nbias +
-                         (dbias_partial != nullptr ? kTile * nbias : 0)) * sizeof(float);
-  const size_t smem_b = (2 * rows_max * (D + 1) + 2 * rows_max + nbias) * sizeof(float);
-  auto kernel_a = tiled_bwd_query_kernel<D>;
-  auto kernel_b = tiled_bwd_key_kernel<D>;
+  const size_t smem_a = f32_smem_a<D>(kr.seq_k, window, dbias_partial != nullptr);
+  const size_t smem_b = f32_smem_b<D>(seq_q, window);
+  auto kernel_a = tiled_bwd_query_kernel<D, kPacked>;
+  auto kernel_b = tiled_bwd_key_kernel<D, kPacked>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel_a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel_b, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_b);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n * heads, (t + kTile - 1) / kTile);
-  kernel_a<<<grid, kTile, smem_a, stream>>>(
+  const dim3 grid_a(n * heads, (seq_q + kTile - 1) / kTile);
+  const dim3 grid_b(n * heads, (kr.seq_k + kTile - 1) / kTile);
+  kernel_a<<<grid_a, kTile, smem_a, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(bias), static_cast<float*>(dq),
-      static_cast<float*>(dbias_partial), static_cast<float*>(stats), t, heads, window);
+      static_cast<float*>(dbias_partial), static_cast<float*>(stats), seq_q, kr, heads,
+      window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel_b<<<grid, kTile, smem_b, stream>>>(
+  kernel_b<<<grid_b, kTile, smem_b, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(bias), static_cast<const float*>(stats),
-      static_cast<float*>(dk), static_cast<float*>(dv), t, heads, window);
+      static_cast<float*>(dk), static_cast<float*>(dv), seq_q, kr, heads, window);
   return cudaGetLastError();
 }
 
@@ -283,13 +355,14 @@ using bf16 = __nv_bfloat16;
 
 // The masked scores and dP of one chunk of NT n8 key tiles at band offset
 // c0 of a warp in pass A (band offset 0 at key row key_w): s = q . k + bias,
-// -inf outside the band and outside [0, T); dp = g . v.
+// -inf outside the band and outside [kmin, kmax]; dp = g . v.
 template <int NT>
 __device__ __forceinline__ void band_scores(float (&s)[NT][4], float (&dp)[NT][4],
                                             const uint32_t (&qa)[2][4],
                                             const uint32_t (&ga)[2][4], const bf16* kw,
                                             const bf16* vw, const float* bs, int c0,
-                                            int key_w, int t, int nbias, int lane) {
+                                            int key_w, int kmin, int kmax, int nbias,
+                                            int lane) {
   using namespace dawn_mma;
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -301,7 +374,7 @@ __device__ __forceinline__ void band_scores(float (&s)[NT][4], float (&dp)[NT][4
       // row g + 8 (r / 2), band offset off: bias entry off - row
       const int off = c0 + 8 * j + 2 * tq + (r & 1), idx = off - g - 8 * (r >> 1);
       const int key = key_w + off;
-      const bool ok = idx >= 0 && idx < nbias && key >= 0 && key < t;
+      const bool ok = idx >= 0 && idx < nbias && key >= kmin && key <= kmax;
       s[j][r] = ok ? s[j][r] + bs[ok ? idx : 0] : -INFINITY;
     }
   }
@@ -314,10 +387,11 @@ __device__ __forceinline__ void stats_chunk(float (&m)[2], float (&l)[2], float 
                                             const uint32_t (&qa)[2][4],
                                             const uint32_t (&ga)[2][4], const bf16* kw,
                                             const bf16* vw, const float* bs, int c0,
-                                            int key_w, int t, int nbias, int lane) {
+                                            int key_w, int kmin, int kmax, int nbias,
+                                            int lane) {
   using namespace dawn_mma;
   float s[NT][4], dp[NT][4];
-  band_scores<NT>(s, dp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
+  band_scores<NT>(s, dp, qa, ga, kw, vw, bs, c0, key_w, kmin, kmax, nbias, lane);
   float base[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -350,11 +424,11 @@ __device__ __forceinline__ void dq_chunk(float (&dq)[4][4], const float (&lse)[2
                                          const uint32_t (&qa)[2][4],
                                          const uint32_t (&ga)[2][4], const bf16* kw,
                                          const bf16* vw, const float* bs, int c0, int key_w,
-                                         int t, int nbias, int lane) {
+                                         int kmin, int kmax, int nbias, int lane) {
   using namespace dawn_mma;
   const int g = lane >> 2, tq = lane & 3;
   float s[NT][4], dp[NT][4];
-  band_scores<NT>(s, dp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
+  band_scores<NT>(s, dp, qa, ga, kw, vw, bs, c0, key_w, kmin, kmax, nbias, lane);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -375,32 +449,37 @@ __device__ __forceinline__ void dq_chunk(float (&dq)[4][4], const float (&lse)[2
 }
 
 // Pass A on tensor cores (bf16): one block per (sequence-head, 64-row query
-// tile), numbered tile-fastest, 4 warps of 16 query rows.
-__global__ void __launch_bounds__(128)
+// tile), numbered tile-fastest, kWarps warps of 16 query rows (2 when
+// seq_q <= 32).
+template <bool kPacked, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 bwd_query_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ bias, bf16* __restrict__ dq,
                      float* __restrict__ dbias_partial, float* __restrict__ stats,
-                     int seq_len, int heads, int window, int tiles) {
+                     int seq_q, KeyRange kr, int heads, int window, int tiles) {
   using namespace dawn_mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = seq_len, nbias = 2 * window + 1, staged = staged_rows(window);
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // 64 x kLd
-  bf16* gs = qs + 64 * kLd;                        // 64 x kLd
-  bf16* ks = gs + 64 * kLd;                        // staged x kLd
+  constexpr int rows_q = 16 * kWarps;
+  const int nbias = 2 * window + 1, staged = staged_rows(window, kWarps);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // rows_q x kLd
+  bf16* gs = qs + rows_q * kLd;                    // rows_q x kLd
+  bf16* ks = gs + rows_q * kLd;                    // staged x kLd
   bf16* vs = ks + staged * kLd;
   float* bs = reinterpret_cast<float*>(vs + staged * kLd);
-  float* ds_rows = bs + nbias;   // (64, 2w+1) when a bias partial is wanted
+  float* ds_rows = bs + nbias;   // (rows_q, 2w+1) when a bias partial is wanted
 
   const int nh = blockIdx.x / tiles, tile = blockIdx.x % tiles, h = nh % heads;
-  const int q0 = tile * kTile, nq = min(kTile, t - q0);
-  const int kb = q0 - window;                      // the key row at shared row 0
-  const size_t base = (size_t)nh * t * kDim;
-  stage_rows(qs, q + base, kDim, q0, 64, q0, q0 + nq - 1);
-  stage_rows(gs, g + base, kDim, q0, 64, q0, q0 + nq - 1);
-  const int k_lo = max(kb, 0), k_hi = min(q0 + nq - 1 + window, t - 1);
-  stage_rows(ks, k + base, kDim, kb, staged, k_lo, k_hi);
-  stage_rows(vs, v + base, kDim, kb, staged, k_lo, k_hi);
+  const int q0 = tile * kTile, nq = min(kTile, seq_q - q0);
+  const int kb = q0 + kr.key_off - window;        // the key row at shared row 0
+  const size_t ld = row_stride<kDim, kPacked>(heads);
+  const size_t q_base = head_base<kDim, kPacked>(nh, heads, seq_q);
+  const size_t k_base = head_base<kDim, kPacked>(nh, heads, kr.seq_k);
+  stage_rows(qs, q + q_base, ld, q0, rows_q, q0, q0 + nq - 1);
+  stage_rows(gs, g + q_base, ld, q0, rows_q, q0, q0 + nq - 1);
+  const int k_lo = max(kb, kr.kmin), k_hi = min(q0 + nq - 1 + kr.key_off + window, kr.kmax);
+  stage_rows(ks, k + k_base, ld, kb, staged, k_lo, k_hi);
+  stage_rows(vs, v + k_base, ld, kb, staged, k_lo, k_hi);
   for (int e = threadIdx.x; e < nbias; e += blockDim.x)
     bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
   cp_async_wait_all();
@@ -420,9 +499,9 @@ bwd_query_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
     int c0 = 0;
     for (; c0 + 32 <= nk; c0 += 32)
-      stats_chunk<4>(m, l, pdp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
+      stats_chunk<4>(m, l, pdp, qa, ga, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax, nbias, lane);
     if (c0 < nk)   // nk is a multiple of 16
-      stats_chunk<2>(m, l, pdp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
+      stats_chunk<2>(m, l, pdp, qa, ga, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax, nbias, lane);
     float lse[2], delta[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -435,19 +514,21 @@ bwd_query_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float acc[4][4] = {};
     float* ds_warp = dbias_partial != nullptr ? ds_rows + 16 * warp * nbias : nullptr;
     for (c0 = 0; c0 + 32 <= nk; c0 += 32)
-      dq_chunk<4>(acc, lse, delta, ds_warp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
+      dq_chunk<4>(acc, lse, delta, ds_warp, qa, ga, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax,
+                  nbias, lane);
     if (c0 < nk)
-      dq_chunk<2>(acc, lse, delta, ds_warp, qa, ga, kw, vw, bs, c0, key_w, t, nbias, lane);
-    store_rows(dq + base, kDim, q0 + 16 * warp, nq - 16 * warp, acc, qs + 16 * warp * kLd,
+      dq_chunk<2>(acc, lse, delta, ds_warp, qa, ga, kw, vw, bs, c0, key_w, kr.kmin, kr.kmax,
+                  nbias, lane);
+    store_rows(dq + q_base, ld, q0 + 16 * warp, nq - 16 * warp, acc, qs + 16 * warp * kLd,
                lane);
     if ((lane & 3) == 0) {
-      const size_t plane = (size_t)gridDim.x / tiles * t;
+      const size_t plane = (size_t)gridDim.x / tiles * seq_q;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = 16 * warp + (lane >> 2) + 8 * hh;
         if (r < nq) {
-          stats[(size_t)nh * t + q0 + r] = lse[hh];
-          stats[plane + (size_t)nh * t + q0 + r] = delta[hh];
+          stats[(size_t)nh * seq_q + q0 + r] = lse[hh];
+          stats[plane + (size_t)nh * seq_q + q0 + r] = delta[hh];
         }
       }
     }
@@ -466,15 +547,17 @@ bwd_query_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Pass B on tensor cores, one chunk of NT n8 query tiles at band offset c0
 // of a warp's 16 key rows (band offset 0 at shared query row 0 of qw, gw,
-// lse, delta): p^T = exp(k . q + bias - lse), ds^T = p^T (v . g - delta),
-// dv += p^T g and dk += ds^T q with p and ds rounded to bf16.
+// lse, delta; key_ok: whether this lane's key rows g and g + 8 are valid):
+// p^T = exp(k . q + bias - lse), ds^T = p^T (v . g - delta), dv += p^T g and
+// dk += ds^T q with p and ds rounded to bf16.
 template <int NT>
 __device__ __forceinline__ void dkv_chunk(float (&dk)[4][4], float (&dv)[4][4],
                                           const uint32_t (&ka)[2][4],
                                           const uint32_t (&va)[2][4], const bf16* qw,
                                           const bf16* gw, const float* lse,
-                                          const float* delta, const float* bs, int c0,
-                                          int window, int lane) {
+                                          const float* delta, const float* bs,
+                                          const bool (&key_ok)[2], int c0, int window,
+                                          int lane) {
   using namespace dawn_mma;
   const int g = lane >> 2, tq = lane & 3, nbias = 2 * window + 1;
   float p[NT][4], ds[NT][4];
@@ -487,7 +570,7 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[4][4], float (&dv)[4][4],
       // key row g + 8 (r / 2), query at band offset off: bias entry
       // key - query + w
       const int off = c0 + 8 * j + 2 * tq + (r & 1), idx = g + 8 * (r >> 1) - off + 2 * window;
-      const bool ok = idx >= 0 && idx < nbias;
+      const bool ok = key_ok[r >> 1] && idx >= 0 && idx < nbias;
       const float pr = ok ? exp2f((p[j][r] + bs[ok ? idx : 0] - lse[off]) * kLog2e) : 0.f;
       ds[j][r] = pr * (ds[j][r] - delta[off]);
       p[j][r] = pr;
@@ -504,39 +587,46 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[4][4], float (&dv)[4][4],
 }
 
 // Pass B on tensor cores (bf16): one block per (sequence-head, 64-row key
-// tile), numbered tile-fastest, 4 warps of 16 key rows; after pass A.
-__global__ void __launch_bounds__(128)
+// tile), numbered tile-fastest, kWarps warps of 16 key rows (2 when seq_k
+// <= 32); after pass A.
+template <bool kPacked, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 bwd_key_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ g,
                    const float* __restrict__ bias, const float* __restrict__ stats,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int heads,
-                   int window, int tiles) {
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_q, KeyRange kr,
+                   int heads, int window, int tiles) {
   using namespace dawn_mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = seq_len, nbias = 2 * window + 1, staged = staged_rows(window);
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // 64 x kLd
-  bf16* vs = ks + 64 * kLd;                        // 64 x kLd
-  bf16* qs = vs + 64 * kLd;                        // staged x kLd
+  constexpr int rows_k = 16 * kWarps;
+  const int nbias = 2 * window + 1, staged = staged_rows(window, kWarps);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // rows_k x kLd
+  bf16* vs = ks + rows_k * kLd;                    // rows_k x kLd
+  bf16* qs = vs + rows_k * kLd;                    // staged x kLd
   bf16* gs = qs + staged * kLd;
   float* lse = reinterpret_cast<float*>(gs + staged * kLd);
   float* delta = lse + staged;
   float* bs = delta + staged;
 
   const int nh = blockIdx.x / tiles, tile = blockIdx.x % tiles, h = nh % heads;
-  const int k0 = tile * kTile, nkr = min(kTile, t - k0);
-  const int ib = k0 - window;                      // the query row at shared row 0
-  const size_t base = (size_t)nh * t * kDim;
-  stage_rows(ks, k + base, kDim, k0, 64, k0, k0 + nkr - 1);
-  stage_rows(vs, v + base, kDim, k0, 64, k0, k0 + nkr - 1);
-  const int i_lo = max(ib, 0), i_hi = min(k0 + nkr - 1 + window, t - 1);
-  stage_rows(qs, q + base, kDim, ib, staged, i_lo, i_hi);
-  stage_rows(gs, g + base, kDim, ib, staged, i_lo, i_hi);
-  const size_t plane = (size_t)gridDim.x / tiles * t;
+  const int k0 = tile * kTile, nkr = min(kTile, kr.seq_k - k0);
+  const int ib = k0 - kr.key_off - window;        // the query row at shared row 0
+  const size_t ld = row_stride<kDim, kPacked>(heads);
+  const size_t q_base = head_base<kDim, kPacked>(nh, heads, seq_q);
+  const size_t k_base = head_base<kDim, kPacked>(nh, heads, kr.seq_k);
+  // masked key rows stay zeros: they are never read, and get dk = dv = 0
+  const int kv_lo = max(k0, kr.kmin), kv_hi = min(k0 + nkr - 1, kr.kmax);
+  stage_rows(ks, k + k_base, ld, k0, rows_k, kv_lo, kv_hi);
+  stage_rows(vs, v + k_base, ld, k0, rows_k, kv_lo, kv_hi);
+  const int i_lo = max(ib, 0), i_hi = min(k0 + nkr - 1 - kr.key_off + window, seq_q - 1);
+  stage_rows(qs, q + q_base, ld, ib, staged, i_lo, i_hi);
+  stage_rows(gs, g + q_base, ld, ib, staged, i_lo, i_hi);
+  const size_t plane = (size_t)gridDim.x / tiles * seq_q;
   for (int e = threadIdx.x; e < staged; e += blockDim.x) {
     const int i = ib + e;
     const bool ok = i >= i_lo && i <= i_hi;        // else p = 0
-    lse[e] = ok ? stats[(size_t)nh * t + i] : INFINITY;
-    delta[e] = ok ? stats[plane + (size_t)nh * t + i] : 0.f;
+    lse[e] = ok ? stats[(size_t)nh * seq_q + i] : INFINITY;
+    delta[e] = ok ? stats[plane + (size_t)nh * seq_q + i] : 0.f;
   }
   for (int e = threadIdx.x; e < nbias; e += blockDim.x)
     bs[e] = bias != nullptr ? bias[(size_t)h * nbias + e] : 0.f;
@@ -554,48 +644,88 @@ bwd_key_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* gw = gs + 16 * warp * kLd;
   const float* lw = lse + 16 * warp;
   const float* dw = delta + 16 * warp;
+  const int key0 = k0 + 16 * warp + (lane >> 2);
+  const bool key_ok[2] = {key0 >= kr.kmin && key0 <= kr.kmax,
+                          key0 + 8 >= kr.kmin && key0 + 8 <= kr.kmax};
   const int nb = band_rows(window);
   float dk_acc[4][4] = {}, dv_acc[4][4] = {};
+  // chunks whose query rows all lie outside [i_lo, i_hi], and a warp whose
+  // 16 key rows are all masked, add exact zeros: skip them
+  const int off_lo = i_lo - ib - 16 * warp, off_hi = i_hi - ib - 16 * warp;
+  const bool any_key = k0 + 16 * warp <= kr.kmax && k0 + 16 * warp + 15 >= kr.kmin;
   int c0 = 0;
   for (; c0 + 32 <= nb; c0 += 32)
-    dkv_chunk<4>(dk_acc, dv_acc, ka, va, qw, gw, lw, dw, bs, c0, window, lane);
-  if (c0 < nb)   // nb is a multiple of 16
-    dkv_chunk<2>(dk_acc, dv_acc, ka, va, qw, gw, lw, dw, bs, c0, window, lane);
-  store_rows(dk + base, kDim, k0 + 16 * warp, nkr - 16 * warp, dk_acc, ks + 16 * warp * kLd,
+    if (any_key && c0 + 31 >= off_lo && c0 <= off_hi)
+      dkv_chunk<4>(dk_acc, dv_acc, ka, va, qw, gw, lw, dw, bs, key_ok, c0, window, lane);
+  if (any_key && c0 < nb && c0 + 15 >= off_lo && c0 <= off_hi)   // nb: a multiple of 16
+    dkv_chunk<2>(dk_acc, dv_acc, ka, va, qw, gw, lw, dw, bs, key_ok, c0, window, lane);
+  store_rows(dk + k_base, ld, k0 + 16 * warp, nkr - 16 * warp, dk_acc, ks + 16 * warp * kLd,
              lane);
-  store_rows(dv + base, kDim, k0 + 16 * warp, nkr - 16 * warp, dv_acc, vs + 16 * warp * kLd,
+  store_rows(dv + k_base, ld, k0 + 16 * warp, nkr - 16 * warp, dv_acc, vs + 16 * warp * kLd,
              lane);
 }
 
+// Dynamic shared memory of the bf16 passes with `warps` warps: two tiles of
+// 16 * warps rows and the band's staged rows in bf16; A adds the bias row
+// and, with a bias partial, the (16 * warps, 2w+1) f32 dS rows; B the bias
+// row and the staged rows' statistics.
+size_t mma_smem_a(int window, bool bias_grad, int warps) {
+  const size_t staged = dawn_mma::staged_rows(window, warps), nbias = 2 * (size_t)window + 1;
+  return (32 * (size_t)warps + 2 * staged) * dawn_mma::kLd * sizeof(bf16) +
+         (nbias + (bias_grad ? 16 * warps * nbias : 0)) * sizeof(float);
+}
+size_t mma_smem_b(int window, int warps) {
+  const size_t staged = dawn_mma::staged_rows(window, warps), nbias = 2 * (size_t)window + 1;
+  return (32 * (size_t)warps + 2 * staged) * dawn_mma::kLd * sizeof(bf16) +
+         (2 * staged + nbias) * sizeof(float);
+}
+
+template <bool kPacked>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* g,
                        const void* bias, void* dq, void* dk, void* dv, void* dbias_partial,
-                       void* stats, int n, int t, int heads, int window, cudaStream_t stream) {
-  const size_t staged = dawn_mma::staged_rows(window), nbias = 2 * (size_t)window + 1;
-  const size_t tiles_bytes = (2 * kTile + 2 * staged) * dawn_mma::kLd * sizeof(bf16);
-  const size_t smem_a =
-      tiles_bytes + (nbias + (dbias_partial != nullptr ? kTile * nbias : 0)) * sizeof(float);
-  const size_t smem_b = tiles_bytes + (2 * staged + nbias) * sizeof(float);
+                       void* stats, int n, int seq_q, KeyRange kr, int heads, int window,
+                       cudaStream_t stream) {
+  const int warps_a = dawn_mma::tile_warps(seq_q), warps_b = dawn_mma::tile_warps(kr.seq_k);
+  const size_t smem_a = mma_smem_a(window, dbias_partial != nullptr, warps_a);
+  const size_t smem_b = mma_smem_b(window, warps_b);
+  auto kernel_a =
+      warps_a == 2 ? bwd_query_mma_kernel<kPacked, 2> : bwd_query_mma_kernel<kPacked, 4>;
+  auto kernel_b = warps_b == 2 ? bwd_key_mma_kernel<kPacked, 2> : bwd_key_mma_kernel<kPacked, 4>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_query_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+      kernel_a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_key_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel_b, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_b);
   if (err != cudaSuccess) return err;
-  const int tiles = (t + kTile - 1) / kTile;
-  const long long blocks = (long long)n * heads * tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bwd_query_mma_kernel<<<(unsigned)blocks, 128, smem_a, stream>>>(
+  const int tiles_q = (seq_q + kTile - 1) / kTile, tiles_k = (kr.seq_k + kTile - 1) / kTile;
+  const long long blocks_q = (long long)n * heads * tiles_q;
+  const long long blocks_k = (long long)n * heads * tiles_k;
+  if (blocks_q > 0x7fffffffLL || blocks_k > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel_a<<<(unsigned)blocks_q, 32 * warps_a, smem_a, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), static_cast<const float*>(bias), static_cast<bf16*>(dq),
-      static_cast<float*>(dbias_partial), static_cast<float*>(stats), t, heads, window, tiles);
+      static_cast<float*>(dbias_partial), static_cast<float*>(stats), seq_q, kr, heads, window,
+      tiles_q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_key_mma_kernel<<<(unsigned)blocks, 128, smem_b, stream>>>(
+  kernel_b<<<(unsigned)blocks_k, 32 * warps_b, smem_b, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), static_cast<const float*>(bias),
-      static_cast<const float*>(stats), static_cast<bf16*>(dk), static_cast<bf16*>(dv), t,
-      heads, window, tiles);
+      static_cast<const float*>(stats), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_q,
+      kr, heads, window, tiles_k);
   return cudaGetLastError();
+}
+
+template <bool kPacked>
+int run(const void* q, const void* k, const void* v, const void* g, const void* bias,
+        void* dq, void* dk, void* dv, void* dbias_partial, void* stats, int n, int seq_q,
+        KeyRange kr, int heads, int dim_head, int window, int is_bf16, void* stream) {
+  if (dim_head != 32 || seq_q < 1 || window < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_mma<kPacked>(q, k, v, g, bias, dq, dk, dv, dbias_partial,
+                                             stats, n, seq_q, kr, heads, window, s)
+                       : launch_f32<32, kPacked>(q, k, v, g, bias, dq, dk, dv, dbias_partial,
+                                                 stats, n, seq_q, kr, heads, window, s));
 }
 
 }  // namespace
@@ -606,12 +736,38 @@ extern "C" int dawn_local_attn_tiled_bwd(const void* q, const void* k, const voi
                                          void* stats, int n, int t, int heads,
                                          int dim_head, int window, int is_bf16,
                                          void* stream) {
-  if (dim_head != 32 || t < 1 || window < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_mma(q, k, v, g, bias, dq, dk, dv, dbias_partial, stats, n,
-                                    t, heads, window, s)
-                       : launch_f32<32>(q, k, v, g, bias, dq, dk, dv, dbias_partial,
-                                        stats, n, t, heads, window, s));
+  return run<false>(q, k, v, g, bias, dq, dk, dv, dbias_partial, stats, n, t,
+                    KeyRange{t, 0, 0, t - 1}, heads, dim_head, window, is_bf16, stream);
+}
+
+extern "C" int dawn_local_attn_stripe_bwd(const void* q, const void* k, const void* v,
+                                          const void* g, const void* bias, void* dq,
+                                          void* dk, void* dv, void* dbias_partial,
+                                          void* stats, int n, int t_loc, int heads,
+                                          int dim_head, int window, int left_edge,
+                                          int right_edge, int is_bf16, void* stream) {
+  const int seq_k = t_loc + 2 * window;
+  const KeyRange kr{seq_k, window, left_edge ? window : 0,
+                    right_edge ? window + t_loc - 1 : seq_k - 1};
+  return run<true>(q, k, v, g, bias, dq, dk, dv, dbias_partial, stats, n, t_loc, kr, heads,
+                   dim_head, window, is_bf16, stream);
 }
 
 extern "C" int dawn_local_attn_tiled_bwd_tile() { return kTile; }
+
+extern "C" int dawn_local_attn_max_window(int kernel, int t, int is_bf16, int with_bias_grad) {
+  using dawn_limits::max_window;
+  const bool grad = with_bias_grad != 0;
+  if (t < 1 || (kernel != 4 && kernel != 6)) return -1;
+  // K4: T query and key rows; K6: t_loc query rows over t_loc + 2w key rows
+  const bool stripe = kernel == 6;
+  if (is_bf16)
+    return max_window([=](int w) {
+      using dawn_mma::tile_warps;
+      return std::max(mma_smem_a(w, grad, tile_warps(t)),
+                      mma_smem_b(w, tile_warps(stripe ? t + 2 * w : t)));
+    });
+  return max_window([=](int w) {
+    return std::max(f32_smem_a<32>(stripe ? t + 2 * w : t, w, grad), f32_smem_b<32>(t, w));
+  });
+}

@@ -178,7 +178,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 __host__ __device__ constexpr int band_rows(int window) {
   return (16 + 2 * window + 15) / 16 * 16;
 }
-// shared rows a 4-warp block of 64 rows stages: warp i reads [16i, 16i + band)
-__host__ __device__ constexpr int staged_rows(int window) { return 48 + band_rows(window); }
+// shared rows a block of `warps` warps of 16 rows stages: warp i reads
+// [16i, 16i + band)
+__host__ __device__ constexpr int staged_rows(int window, int warps) {
+  return 16 * (warps - 1) + band_rows(window);
+}
+// warps of a block over a tile of `rows` rows: 4 (64 rows), or 2 when every
+// row fits in 32, so that short sequences (T = 20) leave no warp idle and
+// twice as many blocks fit an SM
+inline int tile_warps(int rows) { return rows <= 32 ? 2 : 4; }
 
 }  // namespace dawn_mma

@@ -3,7 +3,12 @@
 Semantics (those of ``dawn_tpu/ops/local_attention.py``): the weight of query
 i over key j is the softmax of q_i . k_j + b[j - i] for |j - i| <= window and
 -1e9 otherwise, over keys in [0, T). q arrives pre-scaled and rotary-rotated.
-Softmax and accumulation run in f32; the output has the input dtype.
+Softmax and accumulation run in f32; the output has the input dtype. In bf16
+each plain version rounds the probabilities (and in the backwards dS) to the
+input dtype before a product exactly where its Pallas TPU kernel does
+(:func:`_rounded`); the JAX package's XLA forms (its ``local_attention_banded``
+and ``_stripe_attn_einsum``) round at other points and are not what the
+kernels stand for. In f32 the rounding is the identity.
 
 - :func:`local_attention_banded`: the JAX CPU path's blockwise banded form,
   (N, H, T, D) layout.
@@ -36,9 +41,15 @@ Softmax and accumulation run in f32; the output has the input dtype.
   plain version, :func:`local_attention_packed_stripe_plain`, takes the
   JAX package's full (H, tq, tk) bias (:func:`stripe_bias`). With grad on,
   the stripe goes through :class:`LocalAttentionStripe`, whose backward is
-  K6 (:func:`local_attention_packed_stripe_bwd`, a second C entry in
-  ``csrc/local_attention_bwd.cu``), and the halo exchange's backward sends
-  the halo rows' gradients back to their owners.
+  K6 (:func:`local_attention_packed_stripe_bwd`, K4's two passes on the
+  packed layout: a second C entry in ``csrc/local_attention_tiled_bwd.cu``),
+  and the halo exchange's backward sends the halo rows' gradients back to
+  their owners.
+
+bf16 K1, K4, K5 and K6 run tensor-core bodies; K2, K3 and every kernel in
+f32 run on the CUDA cores. Each wrapper asks its source for the largest
+window the launch's shared memory allows (``dawn_local_attn_max_window``)
+and raises a ValueError naming it past that.
 """
 
 from __future__ import annotations
@@ -66,6 +77,12 @@ def windowed_bias(t: int, window: int, bias_vec: Optional[torch.Tensor],
         return mask[None]
     idx = torch.from_numpy(np.clip(rel + window, 0, 2 * window)).to(device)
     return bias_vec.float()[:, idx] + mask[None]
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``x`` rounded to ``dtype`` and back: the TPU kernels' cast of P
+    (or dS) to the input dtype before a product. The identity in f32."""
+    return x.to(dtype).float()
 
 
 def _banded_blocks(t: int, window: int):
@@ -97,11 +114,14 @@ def _banded_bias(t: int, window: int, bq: int, nb: int, kw: int,
 
 def local_attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias_vec: Optional[torch.Tensor], window: int) -> torch.Tensor:
-    """Banded local attention, (N, H, T, D) -> (N, H, T, D).
+    """Banded local attention, (N, H, T, D) -> (N, H, T, D): K3's function.
 
     Queries go in blocks of ``bq``; block b attends the key stripe of
     ``bq + 2*window`` frames starting at b*bq - window (zero-padded), so the
-    scores take O(T * (bq + 2w)) memory."""
+    scores take O(T * (bq + 2w)) memory. The normalised P is rounded to the
+    input dtype before P.V, as the Pallas kernel ``_local_attn_tile_kernel``
+    rounds it (``dawn_tpu/ops/local_attention.py:149-152``); the JAX package's
+    own XLA banded form rounds elsewhere (its scores, in bf16)."""
     n, h, t, d = q.shape
     bq, nb, kw = _banded_blocks(t, window)
     t_pad = nb * bq
@@ -116,7 +136,7 @@ def local_attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # torch.softmax subtracts the row max itself
     attn = torch.softmax(scores + _banded_bias(t, window, bq, nb, kw, bias_vec, q.device)[0],
                          dim=-1)
-    out = torch.einsum("nhbij,nhbjd->nhbid", attn, stripes_v)
+    out = torch.einsum("nhbij,nhbjd->nhbid", _rounded(attn, q.dtype), stripes_v)
     return out.reshape(n, h, t_pad, d)[:, :, :t].to(q.dtype)
 
 
@@ -126,7 +146,11 @@ def local_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """K1's function in plain PyTorch, (N, T, H*D) -> (N, T, H*D), any T.
 
     Whole-sequence (T, T) scores per head with the band folded into the
-    bias; the normalization is applied to the output, as in the kernel."""
+    bias; the normalization is applied to the output, as in the kernel. The
+    unnormalised P = exp(s - row max) is rounded to the input dtype before
+    P.V and the divisor is the f32 sum of the unrounded P, as in the Pallas
+    kernel ``_local_attn_packed_kernel`` (``dawn_tpu/ops/local_attention.py:
+    339-346``)."""
     n, t, hd = q.shape
     d = hd // heads
 
@@ -137,7 +161,7 @@ def local_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     s = s + windowed_bias(t, window, bias_vec, q.device)[None]
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
-    o = (p @ split(v)) / p.sum(dim=-1, keepdim=True)
+    o = (_rounded(p, q.dtype) @ split(v)) / p.sum(dim=-1, keepdim=True)
     return o.transpose(1, 2).reshape(n, t, hd).to(q.dtype)
 
 
@@ -161,8 +185,11 @@ def local_attention_packed_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.
     :func:`local_attention_packed_plain` with respect to q, k, v and the f32
     bias vector, given the output gradient ``g``. Whole-sequence (T, T) f32
     scores per head with the band folded into the bias, as the TPU kernel
-    computes them. Returns (dq, dk, dv) in the input dtype and dvec
-    ((H, 2w+1) f32, or None without a bias)."""
+    computes them; P and dS are rounded to the input dtype before the
+    products for dv, dq and dk, and dvec sums the f32 dS, as in the Pallas
+    kernel ``_local_attn_packed_bwd_kernel``
+    (``dawn_tpu/ops/local_attention.py:773-787``). Returns (dq, dk, dv) in
+    the input dtype and dvec ((H, 2w+1) f32, or None without a bias)."""
     n, t, hd = q.shape
     d = hd // heads
 
@@ -177,7 +204,8 @@ def local_attention_packed_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.
     p = torch.softmax(s, dim=-1)
     dp = gs @ vs.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq, dk, dv = ds @ ks, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ gs
+    pk, dsk = _rounded(p, q.dtype), _rounded(ds, q.dtype)
+    dq, dk, dv = dsk @ ks, dsk.transpose(-1, -2) @ qs, pk.transpose(-1, -2) @ gs
     dvec = None
     if bias_vec is not None:
         # entry (i, j) of dS belongs to the bias offset j - i
@@ -236,11 +264,43 @@ def _check_kernel_inputs(what: str, q: torch.Tensor, others, bias_vec, window: i
 
 def _check_aligned(what: str, tensors) -> None:
     """Raise unless every tensor's data starts on a 16-byte boundary: the
-    bf16 tensor-core kernels (K4, K5) stage rows with 16-byte copies."""
+    bf16 tensor-core kernels (K1, K4, K5, K6) stage rows with 16-byte
+    copies."""
     for name, x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{what} in bf16 needs {name} 16-byte aligned, got address "
                              f"{x.data_ptr():#x}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (a copy if it is
+    not): what an autograd backward hands a tensor-core kernel."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _max_window(source: str, kernel: int, t: int, is_bf16: int, bias_grad: bool,
+                device: int) -> int:
+    """The largest window kernel K<kernel> of ``csrc/<source>.cu`` takes at
+    T = t (K6: t_loc) on the card ``device`` (its launch's shared memory);
+    2**31 - 1 for no limit."""
+    lib = _library(source, "dawn_local_attn_max_window", (ctypes.c_int,) * 4)
+    with torch.cuda.device(device):
+        limit = lib.dawn_local_attn_max_window(kernel, t, is_bf16, int(bias_grad))
+    if limit < 0:
+        raise RuntimeError(f"K{kernel}: no window fits the shared memory of {device}")
+    return limit
+
+
+def _check_window(source: str, kernel: int, q: torch.Tensor, t: int, window: int,
+                  bias_grad: bool = False) -> None:
+    """Raise a ValueError naming the kernel, its largest window at this T and
+    the dtype when ``window`` is past it."""
+    limit = _max_window(source, kernel, t, _DTYPE_FLAG[q.dtype], bias_grad, q.device.index)
+    if window > limit:
+        raise ValueError(f"K{kernel} in {str(q.dtype)[6:]} takes windows up to w={limit} at "
+                         f"T={t} (one block's shared memory), got w={window}")
 
 
 def _packed_dim_head(q: torch.Tensor, heads: int) -> int:
@@ -257,10 +317,13 @@ def _forward(q, k, v, bias_vec, window: int, heads: int) -> torch.Tensor:
         return local_attention_packed_plain(q, k, v, bias_vec, window, heads)
     _check_kernel_inputs("K1", q, (("k", k), ("v", v)), bias_vec, window, heads,
                          _packed_dim_head(q, heads), PACKED_MAX_T)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K1", (("q", q), ("k", k), ("v", v)))
     n, t, hd = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    _check_window("local_attention", 1, q, t, window)
     lib = _library("local_attention", "dawn_local_attn_packed_fwd",
                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
@@ -282,7 +345,8 @@ def local_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     (dq, dk, dv, dvec) as :func:`local_attention_packed_bwd_plain` does.
 
     A CUDA tensor launches the CUDA kernel in ``csrc/local_attention_bwd.cu``
-    (T <= 256, D = 32, f32 or bf16, contiguous inputs) or raises; a CPU
+    (T <= 256, D = 32, f32 or bf16, contiguous inputs, the window its shared
+    memory allows) or raises; a CPU
     tensor takes the plain version. The kernel writes one (2w+1) bias
     partial per (sequence, head), summed here over sequences in a fixed
     order. Its ``launches`` attribute counts kernel launches."""
@@ -296,6 +360,7 @@ def local_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                if bias_vec is not None else None)
     if q.numel() == 0:
         return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+    _check_window("local_attention_bwd", 2, q, t, window)
     lib = _library("local_attention_bwd", "dawn_local_attn_packed_bwd",
                    (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
@@ -340,7 +405,8 @@ def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1: windowed attention on the packed (N, T, H*D) layout.
 
     A CUDA tensor launches the CUDA kernel (T <= 256, D = 32, f32 or bf16,
-    contiguous inputs) or raises; a CPU tensor takes the plain version. When
+    contiguous inputs; bf16 on the tensor cores, 16-byte aligned, any w) or
+    raises; a CPU tensor takes the plain version. When
     grad mode is on and an input requires grad, the call goes through
     :class:`LocalAttentionPacked`, whose backward is K2. The ``launches``
     attribute counts K1's kernel launches."""
@@ -359,10 +425,13 @@ def local_attention_tiled_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
     """K4's function in plain PyTorch: the gradients of
     :func:`local_attention_banded` ((N, H, T, D) layout) with respect to q, k,
     v and the f32 bias vector, given the output gradient ``g``, written out in
-    f32 on the banded blocks (scores take O(T * (bq + 2w)) memory). Key-stripe
-    gradients are added back onto the sequence; dvec is the one-hot
-    projection of dS summed over sequences and blocks. Returns (dq, dk, dv)
-    in the input dtype and dvec ((H, 2w+1) f32, or None without a bias)."""
+    f32 on the banded blocks (scores take O(T * (bq + 2w)) memory). P and dS
+    are rounded to the input dtype before the products, as in the Pallas
+    kernel ``_local_attn_tile_bwd_kernel`` (``dawn_tpu/ops/local_attention.py:
+    915-916``). Key-stripe gradients are added back onto the sequence; dvec
+    is the one-hot projection of the f32 dS summed over sequences and blocks.
+    Returns (dq, dk, dv) in the input dtype and dvec ((H, 2w+1) f32, or None
+    without a bias)."""
     n, h, t, d = q.shape
     bq, nb, kw = _banded_blocks(t, window)
     t_pad = nb * bq
@@ -384,9 +453,10 @@ def local_attention_tiled_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
         out.index_add_(2, idx, x.reshape(n, h, nb * kw, d))
         return out[:, :, window:window + t]
 
-    dq = (ds @ ks).reshape(n, h, t_pad, d)[:, :, :t]
-    dk = unstripe(ds.transpose(-1, -2) @ qb)
-    dv = unstripe(p.transpose(-1, -2) @ gb)
+    pk, dsk = _rounded(p, q.dtype), _rounded(ds, q.dtype)
+    dq = (dsk @ ks).reshape(n, h, t_pad, d)[:, :, :t]
+    dk = unstripe(dsk.transpose(-1, -2) @ qb)
+    dv = unstripe(pk.transpose(-1, -2) @ gb)
     dvec = None
     if bias_vec is not None:
         onehot = torch.from_numpy((rel[None] == np.arange(-window, window + 1)[:, None, None])
@@ -400,8 +470,9 @@ def local_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3: windowed attention on the (N, H, T, D) layout, any T.
 
     A CUDA tensor launches the CUDA kernel (``dawn_local_attn_tiled_fwd`` in
-    ``csrc/local_attention.cu``: K1's body on this layout; D = 32, f32 or
-    bf16, contiguous inputs) or raises; a CPU tensor takes the plain version,
+    ``csrc/local_attention.cu``: the CUDA-core body of f32 K1 on this layout,
+    rounding the normalised P in bf16; D = 32, f32 or bf16, contiguous
+    inputs, the window its shared memory allows) or raises; a CPU tensor takes the plain version,
     :func:`local_attention_banded`. The ``launches`` attribute counts K3's
     kernel launches. No autograd graph: see :func:`local_attention`."""
     if q.device.type == "cpu":
@@ -411,6 +482,7 @@ def local_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    _check_window("local_attention", 3, q, t, window)
     lib = _library("local_attention", "dawn_local_attn_tiled_fwd",
                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
@@ -449,16 +521,12 @@ def local_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         _check_aligned("K4", (("q", q), ("k", k), ("v", v), ("g", g)))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd",
-                   (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
-    tile = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd_tile",
-                    ()).dawn_local_attn_tiled_bwd_tile()     # kTile in the source
-    tiles = -(-t // tile)
-    partial = (torch.empty((n, h, tiles, 2 * window + 1), dtype=torch.float32,
-                           device=q.device) if bias_vec is not None else None)
     if q.numel() == 0:
         return dq, dk, dv, (None if bias_vec is None else torch.zeros_like(bias_vec))
-    stats = torch.empty((2, n * h, t), dtype=torch.float32, device=q.device)   # lse, delta
+    _check_window("local_attention_tiled_bwd", 4, q, t, window, bias_vec is not None)
+    lib = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd",
+                   (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    partial, stats = _tiled_bwd_scratch(n, h, t, window, bias_vec is not None, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dawn_local_attn_tiled_bwd(
@@ -474,6 +542,17 @@ def local_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 local_attention_tiled_bwd.launches = 0
+
+
+def _tiled_bwd_scratch(n: int, heads: int, t_q: int, window: int, bias_grad: bool, device):
+    """K4's and K6's scratch: the (N, H, tiles, 2w+1) f32 bias partials (or
+    None), tiles of the source's kTile query rows, and the (2, N*H, TQ) f32
+    row statistics (lse, delta)."""
+    tile = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd_tile",
+                    ()).dawn_local_attn_tiled_bwd_tile()
+    partial = (torch.empty((n, heads, -(-t_q // tile), 2 * window + 1), dtype=torch.float32,
+                           device=device) if bias_grad else None)
+    return partial, torch.empty((2, n * heads, t_q), dtype=torch.float32, device=device)
 
 
 class LocalAttentionTiled(torch.autograd.Function):
@@ -492,7 +571,7 @@ class LocalAttentionTiled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias_vec = ctx.saved_tensors
-        dq, dk, dv, dvec = local_attention_tiled_bwd(q, k, v, g.contiguous(), bias_vec,
+        dq, dk, dv, dvec = local_attention_tiled_bwd(q, k, v, _aligned(g), bias_vec,
                                                      ctx.window)
         return dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None), None
 
@@ -559,8 +638,11 @@ def local_attention_packed_stripe_plain(q: torch.Tensor, k: torch.Tensor, v: tor
     """K5's function in plain PyTorch, the counterpart of the JAX package's
     ``_stripe_attn_einsum``: q (N, TQ, H*D) over the haloed keys k, v (N, TK,
     H*D) with the caller's (H, >= TQ, >= TK) bias (cut to (TQ, TK)).
-    Scores, softmax and p.v in f32, as in the kernel (JAX rounds p to v's
-    dtype, which is the same for f32 inputs); returns q's dtype."""
+    Scores and softmax in f32; as in K1's Pallas body, which the TPU's K5
+    runs, the unnormalised P is rounded to the input dtype before P.V and
+    the output divided by the f32 sum of the unrounded P (the JAX package's
+    ``_stripe_attn_einsum`` rounds the normalised P instead). Returns q's
+    dtype."""
     n, t_q, hd = q.shape
     t_k = k.shape[1]
     d = hd // heads
@@ -569,8 +651,9 @@ def local_attention_packed_stripe_plain(q: torch.Tensor, k: torch.Tensor, v: tor
         return x.float().reshape(n, t, heads, d).transpose(1, 2)   # (n, h, t, d)
 
     s = split(q, t_q) @ split(k, t_k).transpose(-1, -2) + bias[None, :, :t_q, :t_k]
-    p = torch.softmax(s, dim=-1)
-    return (p @ split(v, t_k)).transpose(1, 2).reshape(n, t_q, hd).to(q.dtype)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = (_rounded(p, q.dtype) @ split(v, t_k)) / p.sum(dim=-1, keepdim=True)
+    return o.transpose(1, 2).reshape(n, t_q, hd).to(q.dtype)
 
 
 def local_attention_packed_stripe_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -581,9 +664,12 @@ def local_attention_packed_stripe_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     (q (N, t_loc, H*D) over the haloed k, v (N, t_loc + 2w, H*D), the bias of
     :func:`stripe_bias` with the given edge flags) with respect to q, k, v
     and the f32 bias vector, given the output gradient ``g``. dvec[h, r] is
-    the sum of dS over the entries at key offset r - w; the JAX package gets
-    the same from the autodiff of its bias construction. Returns (dq, dk, dv)
-    in the input dtype and dvec ((H, 2w+1) f32, or None without a bias)."""
+    the sum of the f32 dS over the entries at key offset r - w; the JAX
+    package gets the same from the autodiff of its bias construction. P and
+    dS are rounded to the input dtype before the products, as in K2's Pallas
+    body, which the TPU's K6 runs (``dawn_tpu/ops/local_attention.py:
+    773-774``). Returns (dq, dk, dv) in the input dtype and dvec ((H, 2w+1)
+    f32, or None without a bias)."""
     n, t_loc, hd = q.shape
     t_k = k.shape[1]
     d = hd // heads
@@ -601,7 +687,8 @@ def local_attention_packed_stripe_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(qs @ ks.transpose(-1, -2) + bias, dim=-1)
     dp = gs @ vs.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq, dk, dv = ds @ ks, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ gs
+    pk, dsk = _rounded(p, q.dtype), _rounded(ds, q.dtype)
+    dq, dk, dv = dsk @ ks, dsk.transpose(-1, -2) @ qs, pk.transpose(-1, -2) @ gs
     dvec = None
     if bias_vec is not None:
         rel = (np.arange(t_k)[None, :] - window) - np.arange(t_loc)[:, None]
@@ -611,20 +698,16 @@ def local_attention_packed_stripe_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return merge(dq, t_loc), merge(dk, t_k), merge(dv, t_k), dvec
 
 
-def _check_stripe_inputs(what: str, q, kx, vx, g, bias_vec, window: int, heads: int,
-                         max_tk: Optional[int] = None) -> None:
+def _check_stripe_inputs(what: str, q, kx, vx, g, bias_vec, window: int,
+                         heads: int) -> None:
     """Raise on what K5/K6 do not take (the checks of the whole-sequence
-    kernels, on the query side and the key side), on keys that are not the
-    queries' t_loc + 2w haloed rows, and on more than ``max_tk`` keys."""
+    kernels, on the query side and the key side) and on keys that are not
+    the queries' t_loc + 2w haloed rows."""
     n, t_loc, hd = q.shape
     want = (n, t_loc + 2 * window, hd)
     if tuple(kx.shape) != want:
         raise ValueError(f"{what}: haloed keys must be {want} for q {tuple(q.shape)} "
                          f"and window {window}, got {tuple(kx.shape)}")
-    if max_tk is not None and want[1] > max_tk:
-        raise ValueError(
-            f"{what} covers stripes of t_loc + 2w <= {max_tk} keys (one block per "
-            f"(sequence, head) holds them all), got {want[1]}: a tiled K6 is open work")
     if kx.dtype != q.dtype or kx.device != q.device:
         raise ValueError(f"{what}: keys {kx.dtype} {kx.device} do not match q "
                          f"{q.dtype} {q.device}")
@@ -649,6 +732,7 @@ def _stripe_forward(q, kx, vx, bias_vec, window: int, heads: int, left_edge: boo
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    _check_window("local_attention", 5, q, t_loc, window)
     lib = _library("local_attention", "dawn_local_attn_stripe_fwd",
                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
@@ -673,36 +757,41 @@ def local_attention_packed_stripe_bwd(q: torch.Tensor, kx: torch.Tensor, vx: tor
     haloed keys.
 
     A CUDA tensor launches ``dawn_local_attn_stripe_bwd`` in
-    ``csrc/local_attention_bwd.cu`` (t_loc + 2w <= 256 keys, D = 32, f32 or
-    bf16, contiguous inputs) or raises; a CPU tensor takes the plain
-    version. The kernel writes one (2w+1) bias partial per (sequence, head),
-    summed here over sequences in a fixed order. Its ``launches`` attribute
-    counts kernel launches."""
+    ``csrc/local_attention_tiled_bwd.cu``, K4's query-tile and key-tile
+    passes on the packed layout (any t_loc, D = 32, f32 or bf16, contiguous
+    inputs; bf16 on the tensor cores, 16-byte aligned; the window K4 takes)
+    or raises; a CPU tensor takes the plain version. One call is two
+    launches, counted once in ``launches``. The kernel writes one (2w+1)
+    bias partial per (sequence, head, query tile), summed here in a fixed
+    order."""
     if q.device.type == "cpu":
         return local_attention_packed_stripe_bwd_plain(q, kx, vx, g, bias_vec, window, heads,
                                                        left_edge, right_edge)
-    _check_stripe_inputs("K6", q, kx, vx, g, bias_vec, window, heads, PACKED_MAX_T)
+    _check_stripe_inputs("K6", q, kx, vx, g, bias_vec, window, heads)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K6", (("q", q), ("kx", kx), ("vx", vx), ("g", g)))
     n, t_loc, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(kx), torch.empty_like(vx)
-    partial = (torch.empty((n, heads, 2 * window + 1), dtype=torch.float32, device=q.device)
-               if bias_vec is not None else None)
     if q.numel() == 0:
-        return dq, dk, dv, (None if partial is None else torch.zeros_like(bias_vec))
-    lib = _library("local_attention_bwd", "dawn_local_attn_stripe_bwd",
-                   (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+        return dq, dk, dv, (None if bias_vec is None else torch.zeros_like(bias_vec))
+    _check_window("local_attention_tiled_bwd", 6, q, t_loc, window, bias_vec is not None)
+    lib = _library("local_attention_tiled_bwd", "dawn_local_attn_stripe_bwd",
+                   (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+    partial, stats = _tiled_bwd_scratch(n, heads, t_loc, window, bias_vec is not None,
+                                        q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dawn_local_attn_stripe_bwd(
             q.data_ptr(), kx.data_ptr(), vx.data_ptr(), g.data_ptr(),
             bias_vec.data_ptr() if bias_vec is not None else None,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
+            partial.data_ptr() if partial is not None else None, stats.data_ptr(),
             n, t_loc, heads, hd // heads, window, int(left_edge), int(right_edge),
             _DTYPE_FLAG[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"K6 launch failed: cudaError {rc}")
     local_attention_packed_stripe_bwd.launches += 1
-    return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+    return dq, dk, dv, (None if partial is None else partial.sum(dim=(0, 2)))
 
 
 local_attention_packed_stripe_bwd.launches = 0
@@ -723,7 +812,7 @@ class LocalAttentionStripe(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, kx, vx, bias_vec = ctx.saved_tensors
-        dq, dk, dv, dvec = local_attention_packed_stripe_bwd(q, kx, vx, g.contiguous(),
+        dq, dk, dv, dvec = local_attention_packed_stripe_bwd(q, kx, vx, _aligned(g),
                                                              bias_vec, *ctx.args)
         return (dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None),
                 None, None, None, None)

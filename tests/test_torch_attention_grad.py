@@ -6,7 +6,11 @@ runs, and what chip_smoke.py holds the CUDA kernel against on the card), is
 held against the JAX package's Pallas backward ``_packed_bwd_pallas`` in
 interpret mode on the cases of tests/test_torch_local_attention.py: dq, dk,
 dv and the bias-vector gradient at atol 1e-5 (dvec: 1e-4, a sum over every
-query of the sequence). The autograd Function LocalAttentionPacked on CPU
+query of the sequence). Two bf16 cases on cancelling inputs
+(``test_torch_util.cancelling_inputs``) hold dq, dk, dv at one bf16 ulp of
+each entry plus 2^-14 of the largest (``assert_bf16_close``; the f32 dvec
+likewise): the plain version rounds P and dS to bf16 before the products,
+as the Pallas kernel does. The autograd Function LocalAttentionPacked on CPU
 tensors (plain forward, plain backward, no kernel launch) is held against
 torch.autograd through the plain forward at atol 1e-5.
 """
@@ -22,12 +26,16 @@ from dawn_tpu_torch.ops.local_attention import (LocalAttentionPacked, local_atte
                                                 local_attention_packed_bwd,
                                                 local_attention_packed_bwd_plain,
                                                 local_attention_packed_plain)
-from test_torch_util import one_torch_thread  # noqa: F401 (autouse fixture)
+import jax.numpy as jnp
+from test_torch_util import (assert_bf16_close, cancelling_inputs,
+                             one_torch_thread)  # noqa: F401 (autouse fixture)
 
 # (n, heads, T, dh, window, with T5 bias), as in test_torch_local_attention.py
 CASES = [(1, 8, 200, 32, 40, True), (1, 4, 77, 32, 20, True),
          (1, 4, 160, 32, 40, True), (1, 4, 136, 32, 20, True),
          (1, 4, 256, 32, 40, True), (1, 2, 50, 16, 10, False)]
+# bf16 twins of the odd-T and no-bias cases, on cancelling inputs
+BF16_CASES = [(1, 4, 77, 32, 20, True), (1, 2, 50, 16, 10, False)]
 
 
 def _inputs(n, h, t, d, w, bias, seed=0):
@@ -39,8 +47,13 @@ def _inputs(n, h, t, d, w, bias, seed=0):
     return q, k, v, g, vec
 
 
-@pytest.mark.parametrize("n,h,t,d,w,bias", CASES)
-def test_plain_backward_matches_pallas(n, h, t, d, w, bias):
+@pytest.mark.parametrize("n,h,t,d,w,bias,dtype", [
+    pytest.param(*case, "float32", id="-".join(map(str, case))) for case in CASES] + [
+    pytest.param(*case, "bfloat16", id="-".join(map(str, case)) + "-bf16")
+    for case in BF16_CASES])
+def test_plain_backward_matches_pallas(n, h, t, d, w, bias, dtype):
+    if dtype == "bfloat16":
+        return _bf16_case(n, h, t, d, w, bias)
     q, k, v, g, vec = _inputs(n, h, t, d, w, bias)
     want = jax.jit(lambda *a: _packed_bwd_pallas(*a, w, h, interpret=True))(q, k, v, g, vec)
     got = local_attention_packed_bwd_plain(*map(torch.from_numpy, (q, k, v, g)),
@@ -51,6 +64,23 @@ def test_plain_backward_matches_pallas(n, h, t, d, w, bias):
             continue
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, err_msg=label,
                                    atol=1e-4 if label == "dvec" else 1e-5)
+
+
+def _bf16_case(n, h, t, d, w, bias):
+    rng = np.random.RandomState(13 + t)
+    xs = cancelling_inputs(rng, (n, t, h * d), (n, t, h * d), row_axis=1)
+    vec = (np.asarray(t5_bias_windowed_vector(rng.randn(32, h).astype(np.float32), w, 32, 32))
+           if bias else None)
+    want = jax.jit(lambda *a: _packed_bwd_pallas(*a, w, h, interpret=True))(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in xs), vec)
+    got = local_attention_packed_bwd_plain(*(torch.from_numpy(x).bfloat16() for x in xs),
+                                           None if vec is None else torch.from_numpy(vec), w, h)
+    for label, a, b in zip(("dq", "dk", "dv", "dvec"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == (torch.float32 if label == "dvec" else torch.bfloat16)
+        assert_bf16_close(a, b, label)
 
 
 @pytest.mark.parametrize("bias", [True, False])

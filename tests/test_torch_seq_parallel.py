@@ -7,7 +7,12 @@
   stripe backward (K6's plain version) against ``_stripe_bwd_pallas(
   interpret=True)`` at atol 2e-4 as there, its dvec against the diagonal
   sums of JAX's dbias tile; ``LocalAttentionStripe`` on CPU tensors
-  against torch autograd of the plain forward (1e-5).
+  against torch autograd of the plain forward (1e-5). The ``_bf16`` cases
+  hold both plain versions against the Pallas kernels in bf16 on
+  cancelling inputs (``test_torch_util.cancelling_inputs``) at one bf16 ulp
+  of each entry plus 2^-14 of the largest (``assert_bf16_close``): they
+  round P, and P and dS, where K1's and K2's Pallas bodies do (the einsum,
+  which rounds elsewhere, is not a bf16 reference).
 - ``seq_sharded_local_attention`` in 2 and 4 gloo processes
   (``tests/torch_seq_worker.py``), forward and the gradients of sum(out *
   g) with respect to q, k, v and the T5 table, against JAX
@@ -52,17 +57,27 @@ from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.ops import local_attention as la
 from dawn_tpu_torch.ops.t5bias import t5_bias_windowed_vector as port_t5_vector
 from dawn_tpu_torch.weights.jax_bridge import load_flow_diffusion_variables
-from test_torch_util import random_tree, start_ranks, one_torch_thread  # noqa: F401
+from test_torch_util import (assert_bf16_close, cancelling_inputs, random_tree, start_ranks,
+                             one_torch_thread)  # noqa: F401
 
 
 # ------------------------------------------------------------ stripe pieces
 
-def _stripe_inputs(n, heads, dh, t_q, t_k, seed):
+def _stripe_inputs(n, heads, dh, t_q, t_k, seed, cancelling=False):
     rng = np.random.RandomState(100 + seed)
+    if cancelling:      # (q, k, v, g) of bf16 cases
+        qkvg = cancelling_inputs(rng, (n, t_q, heads * dh), (n, t_k, heads * dh), row_axis=1)
+        return qkvg, rng.randn(32, heads).astype(np.float32)
     q = (rng.randn(n, t_q, heads * dh) * dh ** -0.5).astype(np.float32)
     k, v = (rng.randn(n, t_k, heads * dh).astype(np.float32) for _ in range(2))
     emb = rng.randn(32, heads).astype(np.float32)
     return q, k, v, emb
+
+
+def _bf16(*xs):
+    """(JAX, torch) bf16 twins of numpy arrays."""
+    return ([jnp.asarray(x).astype(jnp.bfloat16) for x in xs],
+            [torch.from_numpy(x).bfloat16() for x in xs])
 
 
 def _pads(t_q, t_k):
@@ -88,15 +103,37 @@ def _jax_bias(heads, t_loc, w, vec, tq, tk, left, right):
 
 # (n, heads, dh, t_loc, w, left edge, halo keys set to +-1e3): the
 # rectangular stripe, odd lengths with 3 heads (96 lanes), the left-edge
-# mask with its halo keys at +-1e3 (they must get exactly no weight)
+# mask with its halo keys at +-1e3 (they must get exactly no weight); bf16
+# twins of the rectangular and left-edge stripes
 STRIPES = {"rect": (4, 8, 32, 24, 8, False, False),
            "odd": (2, 3, 32, 13, 5, False, False),
-           "left_edge_halo_1e3": (2, 4, 32, 16, 4, True, True)}
+           "left_edge_halo_1e3": (2, 4, 32, 16, 4, True, True),
+           "rect_bf16": (4, 8, 32, 24, 8, False, False),
+           "left_edge_bf16": (2, 4, 32, 16, 4, True, False)}
+
+
+def _stripe_forward_bf16(n, heads, dh, t_loc, w, left, seed):
+    t_k = t_loc + 2 * w
+    (q, k, v, _), emb = _stripe_inputs(n, heads, dh, t_loc, t_k, seed, cancelling=True)
+    tq, tk = _pads(t_loc, t_k)
+    bias = _jax_bias(heads, t_loc, w, jax_t5_vector(jnp.asarray(emb), w, 32, 32), tq, tk,
+                     left, False)
+    (jq, jk, jv), (pq, pk, pv) = _bf16(q, k, v)
+    want = jla.local_attention_packed_stripe(jq, jk, jv, bias, heads, interpret=True)
+    port_bias = la.stripe_bias(heads, t_loc, w, _port_vec(emb, w), left_edge=left)
+    got = la.local_attention_packed_stripe_plain(pq, pk, pv, port_bias, heads)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_close(got, want)
+    wrapped = la.local_attention_packed_stripe(pq, pk, pv, _port_vec(emb, w), w, heads,
+                                               left, False)
+    np.testing.assert_array_equal(wrapped.float().numpy(), got.float().numpy())
 
 
 @pytest.mark.parametrize("case", list(STRIPES))
 def test_stripe_forward_matches_jax(case):
     n, heads, dh, t_loc, w, left, poison = STRIPES[case]
+    if case.endswith("_bf16"):
+        return _stripe_forward_bf16(n, heads, dh, t_loc, w, left, len(case))
     t_k = t_loc + 2 * w
     q, k, v, emb = _stripe_inputs(n, heads, dh, t_loc, t_k, len(case))
     if poison:
@@ -122,18 +159,41 @@ def test_stripe_forward_matches_jax(case):
 
 
 # (n, heads, dh, t_loc, w, left edge, right edge, bias): JAX's backward case
-# as an interior stripe, then with each edge and both, and without a bias
+# as an interior stripe, then with each edge and both, and without a bias;
+# bf16 twins of the interior and both-edges stripes
 STRIPE_BWD = {"interior": (2, 4, 32, 20, 6, False, False, True),
               "left": (2, 4, 32, 20, 6, True, False, True),
               "right": (2, 4, 32, 20, 6, False, True, True),
               "both_edges": (2, 4, 32, 13, 5, True, True, True),
-              "no_bias": (2, 4, 32, 20, 6, True, False, False)}
+              "no_bias": (2, 4, 32, 20, 6, True, False, False),
+              "interior_bf16": (2, 4, 32, 20, 6, False, False, True),
+              "both_edges_bf16": (2, 4, 32, 13, 5, True, True, True)}
+
+
+def _diagonals(dbias, t_loc, t_k, w):
+    """(H, 2w+1) sums of a (H, >= t_loc, >= t_k) dS tile along key offsets."""
+    return np.stack([[sum(dbias[h, i, i + r] for i in range(t_loc) if i + r < t_k)
+                      for r in range(2 * w + 1)] for h in range(dbias.shape[0])])
 
 
 @pytest.mark.parametrize("case", list(STRIPE_BWD))
 def test_stripe_backward_matches_jax(case):
     n, heads, dh, t_loc, w, left, right, with_bias = STRIPE_BWD[case]
     t_k = t_loc + 2 * w
+    if case.endswith("_bf16"):
+        (q, k, v, g), emb = _stripe_inputs(n, heads, dh, t_loc, t_k, 7, cancelling=True)
+        tq, tk = _pads(t_loc, t_k)
+        bias = _jax_bias(heads, t_loc, w, jax_t5_vector(jnp.asarray(emb), w, 32, 32), tq, tk,
+                         left, right)
+        (jq, jk, jv, jg), port = _bf16(q, k, v, g)
+        want = jla._stripe_bwd_pallas(jq, jk, jv, bias, jg, heads, interpret=True)
+        got = la.local_attention_packed_stripe_bwd_plain(*port, _port_vec(emb, w), w, heads,
+                                                         left, right)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == torch.bfloat16
+            assert_bf16_close(a, b, name)
+        assert_bf16_close(got[3], _diagonals(np.asarray(want[3]), t_loc, t_k, w), "dvec")
+        return
     q, k, v, emb = _stripe_inputs(n, heads, dh, t_loc, t_k, 7 + len(case))
     g = np.random.RandomState(9).randn(n, t_loc, heads * dh).astype(np.float32)
     tq, tk = _pads(t_loc, t_k)
@@ -153,9 +213,8 @@ def test_stripe_backward_matches_jax(case):
     if not with_bias:
         assert got[3] is None
         return
-    diag = np.stack([[sum(dbias[h, i, i + r] for i in range(t_loc) if i + r < t_k)
-                      for r in range(2 * w + 1)] for h in range(heads)])
-    np.testing.assert_allclose(got[3].numpy(), diag, atol=2e-4, rtol=0, err_msg="dvec")
+    np.testing.assert_allclose(got[3].numpy(), _diagonals(dbias, t_loc, t_k, w), atol=2e-4,
+                               rtol=0, err_msg="dvec")
 
 
 def test_stripe_autograd_on_cpu():

@@ -42,6 +42,40 @@ def random_tree(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def cancelling_inputs(rng, q_shape, k_shape, row_axis: int):
+    """q, k, v, g for the bf16 cases of the attention kernels' plain
+    versions: q small (0.1 / sqrt(32) of a normal draw: scores near the
+    bias), k random, and v and g of
+    +-64 by the parity of their row (key row for v, query row for g), so the
+    outputs and gradients cancel to a few units while the rounding of P and
+    dS to bf16 does not: the formula that keeps them in f32 misses by many
+    bf16 ulps of the output. float32 numpy arrays, to be cast to bf16 by
+    each side."""
+    def pm64(shape):
+        rows = shape[row_axis]
+        sign = np.where(np.arange(rows) % 2 == 0, 64.0, -64.0)
+        return np.broadcast_to(sign.reshape([rows if a == row_axis else 1
+                                             for a in range(len(shape))]), shape)
+    q = (0.1 * 32 ** -0.5 * rng.randn(*q_shape)).astype(np.float32)
+    k = rng.randn(*k_shape).astype(np.float32)
+    return q, k, pm64(k_shape).astype(np.float32), pm64(q_shape).astype(np.float32)
+
+
+# bf16 tolerance of a plain version against its Pallas kernel: one bf16 ulp
+# of each entry (relative 2^-8 to 2^-7), plus 2^-14 of the largest entry for
+# entries near zero; the formula without the kernels' rounding misses it
+# several times over on cancelling_inputs
+BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 2.0 ** -14
+
+
+def assert_bf16_close(got, want, label="", atol_of_max=BF16_ATOL_OF_MAX):
+    """``got`` (a torch tensor) against ``want`` (a JAX or numpy array) at
+    the bf16 tolerance above, both compared in f32."""
+    want = np.asarray(want).astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_RTOL, err_msg=label,
+                               atol=atol_of_max * float(np.abs(want).max()))
+
+
 def leaves_with_paths(tree):
     """{'a/b/c': leaf} of a nested dict."""
     return {"/".join(str(k.key) for k in path): leaf
