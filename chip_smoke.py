@@ -10,11 +10,13 @@ done" line with its seconds), any failure exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc; ptxas's
    registers per kernel, and each kernel's HMMA (tensor-core) instructions
-   from cuobjdump -sass (every instantiation of the bf16 K1/K5 body and of
-   the K4/K6 passes must have some).
-   routes  - bf16 K1 and K6 called for half a second each under the
-   profiler: K1 must run the tensor-core forward and not the CUDA-core
-   one, K6 the two tensor-core passes and not the f32 ones.
+   from cuobjdump -sass (every instantiation of the bf16 forward body, both
+   layouts and both walks, and of the two backward passes in both layouts
+   must have some).
+   routes  - bf16 K1, K3, K6 and K2 called for half a second each under
+   the profiler: K1 and K3 must run the tensor-core forward and not the
+   CUDA-core one, K6 and K2 the two tensor-core passes and not the f32 ones
+   (nor the old whole-sequence K2 body).
 3. kernel K1 - the windowed-attention kernel against its plain PyTorch
    version on the card (TF32 off), case by case with max error and
    tolerance (the sampling shape, the stage-1 training shape N=4096, T=20,
@@ -38,8 +40,9 @@ done" line with its seconds), any failure exits non-zero:
    share, the kernels with the most device time and the port's own kernels.
 7. kernel K2 - the windowed-attention backward against its plain version on
    the card (TF32 off), case by case (stage-1 shape f32 and bf16, stage 2 at
-   T=40, T=77, T=1, T=129, T=256, no bias): dq, dk, dv, dvec errors with
-   their tolerances; autograd through local_attention_packed on CUDA tensors
+   T=40, T=77, T=1, T=129, T=256, no bias, each in f32 and bf16; windows
+   past T, w=300 at T=200 and w=255 at T=256, in both): dq, dk, dv, dvec
+   errors with their tolerances; two calls give the same bits; autograd through local_attention_packed on CUDA tensors
    (K1 forward, K2 backward) against the plain version's autograd; at the
    stage-1 shape the kernel, the plain version, one library call (the
    backward of F.scaled_dot_product_attention, never called by the port) and
@@ -59,9 +62,10 @@ done" line with its seconds), any failure exits non-zero:
 10. kernel K3 - the tiled windowed-attention forward on the (N, H, T, D)
    layout against its plain version (the banded form) on the card, TF32 off:
    T=400 and T=800 at the 128^2 top level (N=1024, 8 x 32, w=40) in f32 and
-   bf16, T=257, T=333, T=1, one tile, no bias, w=20, and the 256^2 top level
-   (N=4096); kernel, plain, SDPA (with the (H, T, T) bias) and bound at the
-   T=400 and T=800 top-level shapes.
+   bf16, T=257, T=333, T=1, one tile, no bias, w=20 (bf16 twins of T=1, one
+   tile, no bias and T=257), w=400 at T=1024 in bf16, and the 256^2 top
+   level (N=4096); kernel, plain, SDPA (with the (H, T, T) bias) and bound
+   at the T=400 and T=800 top-level shapes.
 11. kernel K4 - its backward against its plain version: dq, dk, dv, dvec
    relative to each tensor's largest magnitude (T=400, 800, 257, 333, 1, one
    64-row tile, no bias, w=70; bf16, the tensor-core body, at T=257, 1, one
@@ -102,7 +106,8 @@ done" line with its seconds), any failure exits non-zero:
    window limits - for K1-K6 in f32 and bf16, the largest window each
    launch's shared memory allows (dawn_local_attn_max_window); one past it
    must raise the ValueError that names the kernel, the limit and the dtype
-   before anything is launched (bf16 K1 has no limit).
+   before anything is launched (bf16 K1 has no limit; K2 none at any T <=
+   256 in either dtype).
 17. seq path - a one-rank NCCL process group (file store, no network) and
    its mesh; the UNet's stripe forced, so one card runs the program of an
    edge rank (halo exchange, K5, the GroupNorm all-reduces and the
@@ -210,10 +215,10 @@ def kernels_run(fn, seconds=0.5):
 
 
 def kernel_routes():
-    """Phase: which kernels bf16 K1 and K6 launch, under the profiler at the
-    start of the run: K1 the tensor-core forward and not the CUDA-core one,
-    K6 the two tensor-core passes and not the f32 ones. Launches here are
-    not counted on any path."""
+    """Phase: which kernels bf16 K1, K3, K6 and K2 launch, under the profiler
+    at the start of the run: K1 and K3 the tensor-core forward and not the
+    CUDA-core one, K6 and K2 the two tensor-core passes and not the f32 ones.
+    Launches here are not counted on any path."""
     import torch
     from dawn_tpu_torch.ops import local_attention as la
 
@@ -227,15 +232,32 @@ def kernel_routes():
     check(any("attn_fwd_mma_kernel" in x for x in ran)
           and not any("local_attn_fwd_kernel" in x for x in ran),
           f"bf16 K1 did not run the tensor-core body alone: {sorted(ran)}")
+    n, t, w = 1024, 400, 40                       # K3 at the 400-frame top level
+    q, k, v, vec = _tiled_inputs(gen, n, t, 8, w, torch.bfloat16)
+    ran = kernels_run(lambda: la.local_attention_tiled(q, k, v, vec, w))
+    print(f"kernel routes: bf16 K3 under the profiler: {sorted(ran)}", flush=True)
+    check(any("attn_fwd_mma_kernel" in x for x in ran)
+          and not any("local_attn_fwd_kernel" in x for x in ran),
+          f"bf16 K3 did not run the tensor-core body alone: {sorted(ran)}")
+    del q, k, v
+
+    def passes_alone(what, ran):
+        print(f"kernel routes: bf16 {what} under the profiler: {sorted(ran)}", flush=True)
+        check(any("bwd_query_mma_kernel" in x for x in ran)
+              and any("bwd_key_mma_kernel" in x for x in ran)
+              and not any("tiled_bwd_" in x or "local_attn_packed_bwd_kernel" in x
+                          for x in ran),
+              f"bf16 {what} did not run the two tensor-core passes alone: {sorted(ran)}")
+
     n, t_loc, w = 1024, 20, 20                    # K6 at the stage-2 stripe
     q, kx, vx, g, vec = _stripe_inputs(gen, n, t_loc, w, torch.bfloat16)
-    ran = kernels_run(lambda: la.local_attention_packed_stripe_bwd(q, kx, vx, g, vec, w, 8,
-                                                                   True, False))
-    print(f"kernel routes: bf16 K6 under the profiler: {sorted(ran)}", flush=True)
-    check(any("bwd_query_mma_kernel" in x for x in ran)
-          and any("bwd_key_mma_kernel" in x for x in ran)
-          and not any("tiled_bwd_" in x for x in ran),
-          f"bf16 K6 did not run the two tensor-core passes: {sorted(ran)}")
+    passes_alone("K6", kernels_run(lambda: la.local_attention_packed_stripe_bwd(
+        q, kx, vx, g, vec, w, 8, True, False)))
+    n, t, w = 4096, 20, 20                        # K2 at the stage-1 top level
+    q, k, v, g = (torch.randn(n, t, 256, device="cuda", generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    vec = torch.randn(8, 2 * w + 1, device="cuda", generator=gen)
+    passes_alone("K2", kernels_run(lambda: la.local_attention_packed_bwd(q, k, v, g, vec, w, 8)))
 
 
 def kernel_k1(card, rates):
@@ -367,14 +389,26 @@ def kernel_k2(card, rates):
     # on max|err| / max(1, max|ref|): f32 1e-4 (sum order); bf16 2e-2 for
     # dq/dk/dv (stored in bf16; p and dS rounded to bf16 before the products
     # in both, as the JAX kernel rounds them) and 1e-3 for the f32 dvec.
-    cases = [("stage-1 f32", 4096, 20, 8, 32, 20, torch.float32, True),
-             ("stage-1 bf16", 4096, 20, 8, 32, 20, torch.bfloat16, True),
-             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, torch.bfloat16, True),
-             ("T=77 w=20", 64, 77, 8, 32, 20, torch.float32, True),
-             ("T=1", 64, 1, 8, 32, 20, torch.float32, True),
-             ("T=129", 64, 129, 8, 32, 40, torch.float32, True),
-             ("T=256", 64, 256, 8, 32, 40, torch.float32, True),
-             ("no bias", 64, 200, 8, 32, 40, torch.float32, False)]
+    # Edge cases in both dtypes, and windows past T (the kernel clamps its
+    # band to T - 1 and widens the bias gradient; stage 1 itself has w = T).
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("stage-1 f32", 4096, 20, 8, 32, 20, f32, True),
+             ("stage-1 bf16", 4096, 20, 8, 32, 20, bf16, True),
+             ("stage-2 T=40 bf16", 4096, 40, 8, 32, 20, bf16, True),
+             ("T=77 w=20", 64, 77, 8, 32, 20, f32, True),
+             ("T=1", 64, 1, 8, 32, 20, f32, True),
+             ("T=129", 64, 129, 8, 32, 40, f32, True),
+             ("T=256", 64, 256, 8, 32, 40, f32, True),
+             ("no bias", 64, 200, 8, 32, 40, f32, False),
+             ("T=77 w=20 bf16", 64, 77, 8, 32, 20, bf16, True),
+             ("T=1 bf16", 64, 1, 8, 32, 20, bf16, True),
+             ("T=129 bf16", 64, 129, 8, 32, 40, bf16, True),
+             ("T=256 bf16", 64, 256, 8, 32, 40, bf16, True),
+             ("no bias bf16", 64, 200, 8, 32, 40, bf16, False),
+             ("w=300 T=200", 64, 200, 8, 32, 300, f32, True),
+             ("w=300 T=200 bf16", 64, 200, 8, 32, 300, bf16, True),
+             ("w=255 T=256", 64, 256, 8, 32, 255, f32, True),
+             ("w=255 T=256 bf16", 64, 256, 8, 32, 255, bf16, True)]
     errs = {}
     for name, n, t, heads, d, w, dtype, bias in cases:
         q, k, v, g, vec = inputs(n, t, heads, d, w, dtype, bias)
@@ -395,6 +429,17 @@ def kernel_k2(card, rates):
             check(np.isfinite(err) and rel <= tol, f"K2 {name} {label} error {rel} > {tol}")
         print(f"kernel K2 {name}: N={n} T={t} H={heads} dh={d} w={w} {str(dtype)[6:]} "
               + ", ".join(parts), flush=True)
+
+    # two calls give the same bits, dvec included: no atomics, and the bias
+    # partials are summed in a fixed order
+    for dtype in (f32, bf16):
+        q, k, v, g, vec = inputs(4096, 20, 8, 32, 20, dtype)
+        first = la.local_attention_packed_bwd(q, k, v, g, vec, 20, 8)
+        again = la.local_attention_packed_bwd(q, k, v, g, vec, 20, 8)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"K2 {str(dtype)[6:]}: two calls differ")
+    print("kernel K2 same bits: two calls at the stage-1 shape in f32 and in bf16 give "
+          "identical dq, dk, dv and dvec", flush=True)
 
     # fault 1: a loss through local_attention_packed on CUDA tensors must
     # reach q, k, v and the bias vector, through K1 forward and K2 backward
@@ -745,7 +790,8 @@ def kernel_k3(card, rates):
     # the sampling top level (N = 32^2 sequences, 8 heads, w = 40) at 400 and
     # 800 frames; just past the packed range; odd T; T = 1; one 128-query
     # tile; no bias; w = 20; the 256^2 top level (N = 64^2; checked on its
-    # first and last 256 sequences, where the grid starts and ends).
+    # first and last 256 sequences, where the grid starts and ends); in bf16
+    # also w = 400 at T = 1024, past the CUDA-core body's w <= 370.
     # Tolerances: f32 1e-4 (sum order); bf16 2e-2 (one bf16 ulp of outputs
     # in [2, 4)).
     cases = [("main T=400 f32", 1024, 400, 40, f32, True, 1e-4),
@@ -758,6 +804,11 @@ def kernel_k3(card, rates):
              ("T=1", 64, 1, 40, f32, True, 1e-4),
              ("single tile T=100", 64, 100, 40, f32, True, 1e-4),
              ("no bias", 64, 400, 40, f32, False, 1e-4),
+             ("T=1 bf16", 64, 1, 40, bf16, True, 2e-2),
+             ("single tile T=100 bf16", 64, 100, 40, bf16, True, 2e-2),
+             ("no bias bf16", 64, 400, 40, bf16, False, 2e-2),
+             ("T=257 w=20 bf16", 64, 257, 20, bf16, True, 2e-2),
+             ("T=1024 w=400 bf16", 32, 1024, 400, bf16, True, 2e-2),
              ("256^2 top N=4096 T=400 bf16", 4096, 400, 40, bf16, True, 2e-2)]
     errs = {}
     for name, n, t, w, dtype, bias, tol in cases:
@@ -1359,7 +1410,7 @@ def window_limits():
     calls = [
         (1, "local_attention", 256, lambda w, dt: la.local_attention_packed(
             *packed(256, w, dt), w, 8)),
-        (2, "local_attention_bwd", 256, lambda w, dt: la.local_attention_packed_bwd(
+        (2, "local_attention_tiled_bwd", 256, lambda w, dt: la.local_attention_packed_bwd(
             *packed(256, w, dt)[:3], packed(256, w, dt)[0], packed(256, w, dt)[3], w, 8)),
         (3, "local_attention", 1024, lambda w, dt: la.local_attention_tiled(
             *split(1024, w, dt), w)),
@@ -1374,8 +1425,14 @@ def window_limits():
     for kernel, source, t, call in calls:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
-            limit = la._max_window(source, kernel, t, la._DTYPE_FLAG[dtype], kernel in (4, 6),
-                                   torch.cuda.current_device())
+            limit = la._max_window(source, kernel, t, la._DTYPE_FLAG[dtype],
+                                   kernel in (2, 4, 6), torch.cuda.current_device())
+            if kernel == 2:     # no limit at any T <= 256, with a bias gradient
+                limits = {la._max_window(source, 2, tt, la._DTYPE_FLAG[dtype], True,
+                                         torch.cuda.current_device()) for tt in range(1, 257)}
+                check(limits == {2 ** 31 - 1}, f"K2 {name} reports window limits {limits}")
+                parts.append(f"K2 {name} none at every T <= 256")
+                continue
             if limit == 2 ** 31 - 1:
                 check(kernel == 1 and dtype == torch.bfloat16,
                       f"K{kernel} {name} reports no window limit")
@@ -1594,9 +1651,10 @@ def main():
     hmma = sass_mma_counts(build)
     for fn, count in sorted(hmma.items()):
         print(f"build: sass {fn}: {count} HMMA", flush=True)
-    # the forward body (bf16 K1, K5) and both layouts' passes (K4, K6), each
-    # for 4-warp and 2-warp blocks
-    for entry, built in (("attn_fwd_mma_kernel", 2), ("bwd_query_mma_kernel", 4),
+    # the forward body in both layouts and walks (bf16 K1 and K5 packed with
+    # one walk, K3 split with two) and both layouts' passes (K4 split; K2 and
+    # K6 packed), each for 4-warp and 2-warp blocks
+    for entry, built in (("attn_fwd_mma_kernel", 4), ("bwd_query_mma_kernel", 4),
                          ("bwd_key_mma_kernel", 4)):
         counts = [c for fn, c in hmma.items() if entry in fn]
         check(not hmma or (len(counts) == built and min(counts) > 0),
@@ -1644,7 +1702,8 @@ def main():
              "temporal_attention_grad_T400": grad_t400}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "sample"),
-            ("K2 local_attention_packed_bwd", "local_attention_bwd.cu", 743, k2, "train"),
+            ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,
+             "train"),
             ("K3 local_attention_tiled", "local_attention.cu", 116, k3, "sample_T400"),
             ("K4 local_attention_tiled_bwd", "local_attention_tiled_bwd.cu", 876, k4,
              "temporal_attention_grad_T400"),

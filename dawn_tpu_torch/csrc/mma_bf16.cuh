@@ -1,8 +1,8 @@
 // Warp-level bf16 tensor-core building blocks shared by the hand-written
-// attention kernels (local_attention.cu, local_attention_tiled_bwd.cu):
-// 16-byte cp.async staging of (rows, 32) bf16 tiles into padded shared
-// memory, ldmatrix fragment loads, and mma.sync m16n8k16 (bf16 in, f32
-// accumulate).
+// attention kernels (local_attention.cu, local_attention_tiled_bwd.cu): the
+// two layouts' row addressing, 16-byte cp.async staging of (rows, 32) bf16
+// tiles into padded shared memory, ldmatrix fragment loads, mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), and the masked scores of a band.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1),
@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace dawn_mma {
@@ -23,6 +24,19 @@ constexpr int kDim = 32;        // head width the kernels are built for
 constexpr int kLd = kDim + 8;   // shared row stride in bf16: 80 B, so the 8 rows
                                 // one ldmatrix reads fall in distinct banks
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Row r of sequence-head nh (n * heads + h) in a tensor of `rows` rows a
+// sequence sits at head_base + r * row_stride: n*T*H*D + h*D + r*H*D in the
+// packed (N, T, H*D) layout, (n*H + h)*T*D + r*D in (N, H, T, D).
+template <int D, bool kPacked>
+__device__ __forceinline__ size_t head_base(int nh, int heads, int rows) {
+  return kPacked ? ((size_t)(nh / heads) * rows * heads + nh % heads) * D
+                 : (size_t)nh * rows * D;
+}
+template <int D, bool kPacked>
+__device__ __forceinline__ size_t row_stride(int heads) {
+  return kPacked ? (size_t)heads * D : D;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -174,6 +188,36 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The exponent base of a row max m: 0 for a row with no key yet (m = -inf)
+__device__ __forceinline__ float exp_base(float m) { return m == -INFINITY ? 0.f : m; }
+
+// Where a warp's chunks of key rows read: the shared key and value rows,
+// band offset 0 at shared row r0 (which may lie before the first staged
+// row when a walk reads only the steps that meet the valid keys), and the
+// bias row; band offset 0 is key row key_w, the valid keys [kmin, kmax].
+struct KeyBand {
+  const __nv_bfloat16 *ks, *vs;
+  const float* bs;
+  int r0, key_w, kmin, kmax, nbias;
+};
+
+// The scores of the n8 key tile at band offset c of a warp's 16 query rows
+// (qa: their A fragments over d): s = q . k + bias, -inf outside the band
+// and outside [kmin, kmax] (weight exactly 0).
+__device__ __forceinline__ void band_scores(float (&s)[4], const uint32_t (&qa)[2][4],
+                                            const KeyBand& b, int c, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  mma_dot(s, qa, b.ks, b.r0 + c, lane);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // row g + 8 (r / 2), band offset off: bias entry off - row
+    const int off = c + 2 * t + (r & 1), idx = off - g - 8 * (r >> 1);
+    const int key = b.key_w + off;
+    const bool ok = idx >= 0 && idx < b.nbias && key >= b.kmin && key <= b.kmax;
+    s[r] = ok ? s[r] + b.bs[ok ? idx : 0] : -INFINITY;
+  }
+}
+
 // shared rows a warp's band covers: 16 rows and w on each side, in k16 steps
 __host__ __device__ constexpr int band_rows(int window) {
   return (16 + 2 * window + 15) / 16 * 16;
@@ -183,6 +227,7 @@ __host__ __device__ constexpr int band_rows(int window) {
 __host__ __device__ constexpr int staged_rows(int window, int warps) {
   return 16 * (warps - 1) + band_rows(window);
 }
+
 // warps of a block over a tile of `rows` rows: 4 (64 rows), or 2 when every
 // row fits in 32, so that short sequences (T = 20) leave no warp idle and
 // twice as many blocks fit an SM

@@ -1,4 +1,4 @@
-"""Windowed (local) temporal attention: plain PyTorch forms, kernels K1 and K2.
+"""Windowed (local) temporal attention: plain PyTorch forms and kernels K1-K6.
 
 Semantics (those of ``dawn_tpu/ops/local_attention.py``): the weight of query
 i over key j is the softmax of q_i . k_j + b[j - i] for |j - i| <= window and
@@ -21,9 +21,9 @@ kernels stand for. In f32 the rounding is the identity.
   :func:`local_attention_packed_plain`. Its ``launches`` attribute counts
   kernel launches. Under autograd it goes through
   :class:`LocalAttentionPacked`, whose backward is K2.
-- :func:`local_attention_packed_bwd`: K2, the backward, in
-  ``csrc/local_attention_bwd.cu``; :func:`local_attention_packed_bwd_plain`
-  is its plain version.
+- :func:`local_attention_packed_bwd`: K2, the backward, K4's two passes on
+  the packed layout (a C entry in ``csrc/local_attention_tiled_bwd.cu``);
+  :func:`local_attention_packed_bwd_plain` is its plain version.
 - :func:`local_attention`: the dispatch on the (N, H, T, D) layout for any T.
   A CUDA tensor goes to K3 (:func:`local_attention_tiled`, a second C entry
   in ``csrc/local_attention.cu``), through :class:`LocalAttentionTiled`
@@ -46,10 +46,10 @@ kernels stand for. In f32 the rounding is the identity.
   and the halo exchange's backward sends the halo rows' gradients back to
   their owners.
 
-bf16 K1, K4, K5 and K6 run tensor-core bodies; K2, K3 and every kernel in
-f32 run on the CUDA cores. Each wrapper asks its source for the largest
-window the launch's shared memory allows (``dawn_local_attn_max_window``)
-and raises a ValueError naming it past that.
+Every kernel runs a tensor-core body in bf16 and a CUDA-core body in f32.
+Each wrapper asks its source for the largest window the launch's shared
+memory allows (``dawn_local_attn_max_window``) and raises a ValueError
+naming it past that (K1 and K2 have none at T <= 256).
 """
 
 from __future__ import annotations
@@ -264,8 +264,7 @@ def _check_kernel_inputs(what: str, q: torch.Tensor, others, bias_vec, window: i
 
 def _check_aligned(what: str, tensors) -> None:
     """Raise unless every tensor's data starts on a 16-byte boundary: the
-    bf16 tensor-core kernels (K1, K4, K5, K6) stage rows with 16-byte
-    copies."""
+    bf16 tensor-core kernels (K1-K6) stage rows with 16-byte copies."""
     for name, x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{what} in bf16 needs {name} 16-byte aligned, got address "
@@ -344,37 +343,52 @@ def local_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """K2: the backward of K1 on the packed (N, T, H*D) layout; returns
     (dq, dk, dv, dvec) as :func:`local_attention_packed_bwd_plain` does.
 
-    A CUDA tensor launches the CUDA kernel in ``csrc/local_attention_bwd.cu``
-    (T <= 256, D = 32, f32 or bf16, contiguous inputs, the window its shared
-    memory allows) or raises; a CPU
-    tensor takes the plain version. The kernel writes one (2w+1) bias
-    partial per (sequence, head), summed here over sequences in a fixed
-    order. Its ``launches`` attribute counts kernel launches."""
+    A CUDA tensor launches ``dawn_local_attn_packed_bwd`` in
+    ``csrc/local_attention_tiled_bwd.cu``, K4's query-tile and key-tile
+    passes with the key range [0, T) (T <= 256, D = 32, f32 or bf16,
+    contiguous inputs; bf16 on the tensor cores, 16-byte aligned; any w) or
+    raises; a CPU tensor takes the plain version. The kernel walks the band
+    clamped to w_eff = min(w, T - 1), the keys that exist, and writes one
+    (2 w_eff + 1) bias partial per (sequence, head, query tile), summed here
+    in a fixed order and widened to (H, 2w+1) by :func:`_widen_bias_grad`.
+    One call is two launches, counted once in ``launches``."""
     if q.device.type == "cpu":
         return local_attention_packed_bwd_plain(q, k, v, g, bias_vec, window, heads)
     _check_kernel_inputs("K2", q, (("k", k), ("v", v), ("g", g)), bias_vec, window, heads,
                          _packed_dim_head(q, heads), PACKED_MAX_T)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K2", (("q", q), ("k", k), ("v", v), ("g", g)))
     n, t, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    partial = (torch.empty((n, heads, 2 * window + 1), dtype=torch.float32, device=q.device)
-               if bias_vec is not None else None)
     if q.numel() == 0:
-        return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
-    _check_window("local_attention_bwd", 2, q, t, window)
-    lib = _library("local_attention_bwd", "dawn_local_attn_packed_bwd",
-                   (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+        return dq, dk, dv, (None if bias_vec is None else torch.zeros_like(bias_vec))
+    _check_window("local_attention_tiled_bwd", 2, q, t, window, bias_vec is not None)
+    lib = _library("local_attention_tiled_bwd", "dawn_local_attn_packed_bwd",
+                   (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    # the band the C entry walks: min(w, T - 1)
+    partial, stats = _tiled_bwd_scratch(n, heads, t, min(window, t - 1), bias_vec is not None,
+                                        q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dawn_local_attn_packed_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             bias_vec.data_ptr() if bias_vec is not None else None,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
+            partial.data_ptr() if partial is not None else None, stats.data_ptr(),
             n, t, heads, hd // heads, window, _DTYPE_FLAG[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     local_attention_packed_bwd.launches += 1
-    return dq, dk, dv, (None if partial is None else partial.sum(dim=0))
+    return dq, dk, dv, (None if partial is None
+                        else _widen_bias_grad(partial.sum(dim=(0, 2)), window))
+
+
+def _widen_bias_grad(dvec: torch.Tensor, window: int) -> torch.Tensor:
+    """The (H, 2b+1) gradient of a band clamped to b <= w, the bias entries
+    [w - b, w + b], placed in the middle of an (H, 2w+1) row of zeros: the
+    entries past the band (offsets beyond T - 1) weigh no key and get none."""
+    pad = window - (dvec.shape[-1] - 1) // 2
+    return dvec if pad == 0 else torch.nn.functional.pad(dvec, (pad, pad))
 
 
 local_attention_packed_bwd.launches = 0
@@ -394,7 +408,7 @@ class LocalAttentionPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias_vec = ctx.saved_tensors
-        dq, dk, dv, dvec = local_attention_packed_bwd(q, k, v, g.contiguous(), bias_vec,
+        dq, dk, dv, dvec = local_attention_packed_bwd(q, k, v, _aligned(g), bias_vec,
                                                       ctx.window, ctx.heads)
         return dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None), None, None
 
@@ -470,15 +484,18 @@ def local_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3: windowed attention on the (N, H, T, D) layout, any T.
 
     A CUDA tensor launches the CUDA kernel (``dawn_local_attn_tiled_fwd`` in
-    ``csrc/local_attention.cu``: the CUDA-core body of f32 K1 on this layout,
-    rounding the normalised P in bf16; D = 32, f32 or bf16, contiguous
-    inputs, the window its shared memory allows) or raises; a CPU tensor takes the plain version,
+    ``csrc/local_attention.cu``; D = 32, f32 or bf16, contiguous inputs, the
+    window its shared memory allows; bf16 on the tensor cores, 16-byte
+    aligned, rounding the normalised P in a second walk over the band) or
+    raises; a CPU tensor takes the plain version,
     :func:`local_attention_banded`. The ``launches`` attribute counts K3's
     kernel launches. No autograd graph: see :func:`local_attention`."""
     if q.device.type == "cpu":
         return local_attention_banded(q, k, v, bias_vec, window)
     n, h, t, d = q.shape
     _check_kernel_inputs("K3", q, (("k", k), ("v", v)), bias_vec, window, h, d)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K3", (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -545,9 +562,9 @@ local_attention_tiled_bwd.launches = 0
 
 
 def _tiled_bwd_scratch(n: int, heads: int, t_q: int, window: int, bias_grad: bool, device):
-    """K4's and K6's scratch: the (N, H, tiles, 2w+1) f32 bias partials (or
-    None), tiles of the source's kTile query rows, and the (2, N*H, TQ) f32
-    row statistics (lse, delta)."""
+    """K2's, K4's and K6's scratch: the (N, H, tiles, 2w+1) f32 bias partials
+    (or None; K2: 2 w_eff + 1 columns), tiles of the source's kTile query
+    rows, and the (2, N*H, TQ) f32 row statistics (lse, delta)."""
     tile = _library("local_attention_tiled_bwd", "dawn_local_attn_tiled_bwd_tile",
                     ()).dawn_local_attn_tiled_bwd_tile()
     partial = (torch.empty((n, heads, -(-t_q // tile), 2 * window + 1), dtype=torch.float32,

@@ -20,12 +20,13 @@ import subprocess
 import sys
 
 # (name, shape): K1 at the sampling and stage-1 top levels, K2 at stage 1,
-# K3/K4 at the 128^2 top level of a 400-frame video, K5 at rank 0 of the
-# 2-rank sampling split, K6 at rank 0 of the 2-rank stage-2 split
+# K3 at the 128^2 top level of a 400- and an 800-frame video, K4 at the
+# first, K5 at rank 0 of the 2-rank sampling split, K6 at rank 0 of the
+# 2-rank stage-2 split
 CASES = [("K1", dict(n=1024, t=200, w=40)), ("K1", dict(n=4096, t=20, w=20)),
          ("K2", dict(n=4096, t=20, w=20)), ("K3", dict(n=1024, t=400, w=40)),
-         ("K4", dict(n=1024, t=400, w=40)), ("K5", dict(n=1024, t=100, w=40)),
-         ("K6", dict(n=1024, t=20, w=20))]
+         ("K3", dict(n=1024, t=800, w=40)), ("K4", dict(n=1024, t=400, w=40)),
+         ("K5", dict(n=1024, t=100, w=40)), ("K6", dict(n=1024, t=20, w=20))]
 
 
 def time_ms(fn, iters=20):

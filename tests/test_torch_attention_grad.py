@@ -22,7 +22,8 @@ import jax
 
 from dawn_tpu.ops.local_attention import _packed_bwd_pallas
 from dawn_tpu.ops.t5bias import t5_bias_windowed_vector
-from dawn_tpu_torch.ops.local_attention import (LocalAttentionPacked, local_attention_packed,
+from dawn_tpu_torch.ops.local_attention import (LocalAttentionPacked, _widen_bias_grad,
+                                                local_attention_packed,
                                                 local_attention_packed_bwd,
                                                 local_attention_packed_bwd_plain,
                                                 local_attention_packed_plain)
@@ -30,12 +31,15 @@ import jax.numpy as jnp
 from test_torch_util import (assert_bf16_close, cancelling_inputs,
                              one_torch_thread)  # noqa: F401 (autouse fixture)
 
-# (n, heads, T, dh, window, with T5 bias), as in test_torch_local_attention.py
+# (n, heads, T, dh, window, with T5 bias), as in test_torch_local_attention.py,
+# and stage 1's top level cut to 4 heads: w = 20 >= T = 20, where K2 clamps
+# its band to T - 1 and widens the bias gradient (_widen_bias_grad)
 CASES = [(1, 8, 200, 32, 40, True), (1, 4, 77, 32, 20, True),
          (1, 4, 160, 32, 40, True), (1, 4, 136, 32, 20, True),
-         (1, 4, 256, 32, 40, True), (1, 2, 50, 16, 10, False)]
-# bf16 twins of the odd-T and no-bias cases, on cancelling inputs
-BF16_CASES = [(1, 4, 77, 32, 20, True), (1, 2, 50, 16, 10, False)]
+         (1, 4, 256, 32, 40, True), (1, 2, 50, 16, 10, False),
+         (1, 4, 20, 32, 20, True)]
+# bf16 twins of the odd-T, no-bias and stage-1 cases, on cancelling inputs
+BF16_CASES = [(1, 4, 77, 32, 20, True), (1, 2, 50, 16, 10, False), (1, 4, 20, 32, 20, True)]
 
 
 def _inputs(n, h, t, d, w, bias, seed=0):
@@ -105,3 +109,22 @@ def test_autograd_function_on_cpu(bias):
         np.testing.assert_array_equal(local_attention_packed(*args, w, h).numpy(),
                                       local_attention_packed_plain(*args, w, h).numpy())
     assert issubclass(LocalAttentionPacked, torch.autograd.Function)
+
+
+@pytest.mark.parametrize("t,w", [(20, 20), (7, 30), (20, 19), (50, 10)])
+def test_widen_bias_grad(t, w):
+    """K2's bias gradient over its band clamped to b = min(w, T - 1), widened
+    to (H, 2w+1): the plain version's dvec has nothing outside the entries
+    [w - b, w + b], and widening those entries gives it back exactly."""
+    n, h, d = 2, 3, 32
+    q, k, v, g, vec = _inputs(n, h, t, d, w, True, seed=7)
+    dvec = local_attention_packed_bwd_plain(*map(torch.from_numpy, (q, k, v, g, vec)), w, h)[3]
+    b = min(w, t - 1)
+    assert dvec.shape == (h, 2 * w + 1)
+    assert not dvec[:, :w - b].any() and not dvec[:, w + b + 1:].any()
+    middle = dvec[:, w - b:w + b + 1].clone()
+    widened = _widen_bias_grad(middle, w)
+    assert widened.shape == (h, 2 * w + 1) and widened.dtype == torch.float32
+    np.testing.assert_array_equal(widened.numpy(), dvec.numpy())
+    if b == w:
+        assert widened is middle

@@ -42,9 +42,12 @@ def test_library_path_follows_headers(tmp_path, monkeypatch, edited):
 
 
 def test_bf16_kernels_refuse_unaligned_inputs():
-    # K1, K4, K5 and K6 stage 16-byte rows in bf16: a view one element into
-    # a buffer is refused by name, an allocation's start is taken
+    # K1-K6 stage 16-byte rows in bf16: a view one element into a buffer is
+    # refused by name, an allocation's start is taken
     buf = torch.zeros(4 * 256 + 8, dtype=torch.bfloat16)
     la._check_aligned("K5", (("q", buf[:1024]),))
     with pytest.raises(ValueError, match="K5 in bf16 needs kx 16-byte aligned"):
         la._check_aligned("K5", (("q", buf[:1024]), ("kx", buf[1:1025])))
+    for kernel, name in (("K2", "g"), ("K3", "v")):
+        with pytest.raises(ValueError, match=f"{kernel} in bf16 needs {name} 16-byte aligned"):
+            la._check_aligned(kernel, (("q", buf[:1024]), (name, buf[1:1025])))

@@ -48,8 +48,8 @@ from test_torch_util import (assert_bf16_close, cancelling_inputs,
 # holding the whole sequence (T=50 <= bq=64)
 CASES = [(1, 4, 257, 20, True), (2, 2, 300, 40, True), (1, 4, 333, 70, True),
          (1, 8, 300, 40, False), (2, 4, 50, 40, True)]
-# bf16 twins of the T=300 and one-tile cases, on cancelling inputs
-BF16_CASES = [(1, 2, 300, 40, True), (2, 4, 50, 40, True)]
+# bf16 twins of the T=300, one-tile and w=70 cases, on cancelling inputs
+BF16_CASES = [(1, 2, 300, 40, True), (2, 4, 50, 40, True), (1, 4, 333, 70, True)]
 PARAMS = [pytest.param(*case, "float32", id="-".join(map(str, case))) for case in CASES] + [
     pytest.param(*case, "bfloat16", id="-".join(map(str, case)) + "-bf16")
     for case in BF16_CASES]
