@@ -38,6 +38,20 @@ done" line with its seconds), any failure exits non-zero:
    frames/s and peak device memory.
 6. profile - the warm path once more under torch.profiler: device busy
    share, the kernels with the most device time and the port's own kernels.
+   pipeline parity - the pipeline's other models, card against CPU, f32,
+   TF32 off, the same weights: HuBERT-large at full width on 2 s of audio
+   (max error within 1e-3 of max|ref|) and the two reemb6 PBnets' pose and
+   blink drives at T=200 with the same z (atol 1e-4).
+   pipeline path - the whole pipeline through the CLI's entry point
+   (``python -m dawn_tpu_torch.pipeline.generator``'s ``main()``) on a
+   synthetic 8 s 44.1 kHz WAV and a 128^2 portrait, assetless (random
+   HuBERT-large, random reemb6 x 2, the 128^2 DAWN at 20 DDIM steps, UNet
+   bf16, LFG f32): the cache files' shapes, a finite (200, 128, 128, 3)
+   video in [0, 1], 200 PNGs and a 200-frame mp4, exactly 200 K1 launches
+   and no other kernel; each stage's seconds of the cold CLI call and of a
+   warm second run, frames/s end to end, peak memory, stage 4's sampling
+   timed once more alone (against stage 4: the file writes, within the
+   sampling call's spread), and the warm run under the profiler.
 7. kernel K2 - the windowed-attention backward against its plain version on
    the card (TF32 off), case by case (stage-1 shape f32 and bf16, stage 2 at
    T=40, T=77, T=1, T=129, T=256, no bias, each in f32 and bf16; windows
@@ -123,7 +137,8 @@ done" line with its seconds), any failure exits non-zero:
    diffused frames): finite losses, exactly 10 K5 + 10 K6 launches a step,
    the warm step's time.
 19. kernels - one JSON line listing every ported kernel (K1-K6) with its
-   numbers and its launches on every path.
+   numbers and its launches on every path (K1's ``launches``: the pipeline
+   path's CLI call).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -566,6 +581,172 @@ def profile(run, card, what="profile"):
         if any(s in e.key for s in ("local_attn", "tiled_bwd", "_mma_kernel")):
             print(f"{what}   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  "
                   f"{e.key[:110]} (port kernel, rank {top.index(e) + 1})", flush=True)
+
+
+def pipeline_parity():
+    """Phase: the pipeline's other models, card against CPU, f32, TF32 off,
+    the same weights: HuBERT-large at full width on 2 s of audio (max error
+    within 1e-3 of max|ref|), and the two reemb6 PBnets' drives at T=200
+    with the same z (atol 1e-4, the pose in its normalized units)."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from dawn_tpu_torch.models.pbnet import CVAE, PBnetParams
+    from dawn_tpu_torch.pipeline.audio import zero_mean_unit_var
+    from dawn_tpu_torch.pipeline.pose_blink import (DEFAULT_BLINK_2, DEFAULT_POSE_6,
+                                                    MAX_VALS_8, MIN_VALS_8, drives_separate)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 20)
+    torch.manual_seed(SEED + 20)
+    cpu = HubertModel(HubertConfig.large(), device="cpu")
+    gpu = HubertModel(HubertConfig.large(), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    wav = torch.from_numpy(zero_mean_unit_var(rng.randn(32000).astype(np.float32))[None])
+    ref = cpu(wav)
+    got = gpu(wav).cpu()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"pipeline parity: HuBERT-large (24 layers x 1024, random weights) on 2 s of audio, "
+          f"card vs CPU, f32, TF32 off: output {tuple(got.shape)}, max_abs_err={err:.3e} "
+          f"= {err / scale:.3e} of max|ref| {scale:.3e}, tol 1e-3 of max|ref|", flush=True)
+    check(tuple(got.shape) == (1, 99, 1024) and err <= 1e-3 * scale,
+          f"HuBERT parity error {err} (max|ref| {scale})")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    t = 200
+    models = {}
+    for kind, dim in (("pose", 6), ("blink", 2)):
+        cpu = CVAE(PBnetParams(pos_dim=dim), device="cpu")
+        gpu = CVAE(PBnetParams(pos_dim=dim), device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        models[kind] = cpu, gpu
+    audio = rng.randn(t, 1024).astype(np.float32)
+    z_pose, z_blink = (rng.randn(1, t, 256).astype(np.float32) for _ in range(2))
+    want, got = (drives_separate(models["pose"][i], models["blink"][i], audio, DEFAULT_POSE_6,
+                                 DEFAULT_BLINK_2, z_pose=z_pose, z_blink=z_blink)
+                 for i in (0, 1))
+    span = MAX_VALS_8[:6] - MIN_VALS_8[:6]
+    errs = [float(np.abs((g - w) / s).max()) for g, w, s in zip(got, want, (span, 1.0))]
+    print(f"pipeline parity: reemb6 pose and blink drives, T={t}, same z, card vs CPU, f32: "
+          f"max_abs_err pose {errs[0]:.3e} (normalized units), blink {errs[1]:.3e}, tol 1e-4",
+          flush=True)
+    check(got[0].shape == (t, 6) and got[1].shape == (t, 2) and max(errs) <= 1e-4,
+          f"PBnet drive errors {errs}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def write_pipeline_inputs(root, seconds, size, seed):
+    """A synthetic speech-like WAV (44.1 kHz int16: a 120-240 Hz voiced
+    buzz with a syllable envelope, plus noise) and a smooth size^2 portrait
+    PNG; returns their paths."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    sr = 44100
+    tt = np.arange(int(sr * seconds)) / sr
+    f0 = 180 + 60 * np.sin(2 * np.pi * 0.7 * tt)
+    voice = np.sign(np.sin(2 * np.pi * np.cumsum(f0) / sr)) * (0.5 + 0.5 * np.sin(
+        2 * np.pi * 4 * tt)) ** 2
+    wav = 0.3 * voice + 0.02 * rng.randn(tt.size)
+    wav_path = os.path.join(root, "speech.wav")
+    wavfile.write(wav_path, sr, (wav * 32767).astype(np.int16))
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    face = np.stack([0.6 + 0.3 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.08),
+                     0.4 + 0.2 * xx, 0.3 + 0.2 * yy], axis=-1)
+    img_path = os.path.join(root, "portrait.png")
+    Image.fromarray((np.clip(face, 0, 1) * 255).astype(np.uint8)).save(img_path)
+    return wav_path, img_path
+
+
+def pipeline_path(card):
+    """Phase: the whole pipeline through the port's CLI entry point
+    (``python -m dawn_tpu_torch.pipeline.generator``'s ``main()``) on an 8 s
+    44.1 kHz WAV and a 128^2 portrait, assetless: random HuBERT-large,
+    random reemb6 x 2, the 128^2 DAWN at 20 DDIM steps (UNet bf16, LFG f32).
+    Checks the cache files, a finite (200, 128, 128, 3) video in [0, 1],
+    200 PNGs and a 200-frame mp4, and exactly 200 K1 launches and no other
+    kernel; then a warm second run of the same generator (again 200 K1),
+    stage 4's sampling alone, and a run under the profiler. Returns the
+    (K1-K6) launches of the CLI's run."""
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.pipeline import generator
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    root = tempfile.mkdtemp(prefix="dawn_pipeline_")
+    wav, img = write_pipeline_inputs(root, 8.0, 128, SEED + 30)
+    out_dir, cache = os.path.join(root, "out"), os.path.join(root, "cache")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "dawn_128.yaml")
+    argv = ["--audio_path", wav, "--image_path", img, "--output_path", out_dir,
+            "--cache_path", cache, "--config", config]
+    t = 200
+
+    def checked_run(run):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = run()
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        check(launches == (t, 0, 0, 0, 0, 0), f"pipeline launches (K1-K6) {launches}")
+        return gen, secs, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    gen, cold, launches, cold_peak = checked_run(lambda: generator.main(argv))
+    cold_stages = dict(gen.stage_seconds)
+    for name, shape in (("init_pose", (1, 7)), ("init_eye_bbox", (1, 8)),
+                        ("target_audio", (t, 1024)), ("dri_pose", (t, 6)),
+                        ("dri_blink", (t, 2))):
+        arr = np.load(os.path.join(cache, f"{name}.npy"))
+        check(arr.shape == shape and np.isfinite(arr).all(),
+              f"{name}.npy: shape {arr.shape} (want {shape}), finite {np.isfinite(arr).all()}")
+    vid = gen.frames
+    check(vid.shape == (t, 128, 128, 3) and np.isfinite(vid).all(),
+          f"pipeline video {vid.shape}, finite {np.isfinite(vid).all()}")
+    lo, hi = float(vid.min()), float(vid.max())
+    check(0.0 <= lo and hi <= 1.0, f"pipeline video range [{lo}, {hi}]")
+    name = os.path.splitext(os.path.basename(img))[0]
+    pngs = len(os.listdir(os.path.join(out_dir, name, "img")))
+    cap = cv2.VideoCapture(os.path.join(out_dir, name, "video", f"{name}_silent.mp4"))
+    mp4_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    check(pngs == t and mp4_frames == t, f"{pngs} PNGs, {mp4_frames} mp4 frames (want {t})")
+
+    gen, warm, _, warm_peak = checked_run(lambda: (gen.run(), gen)[1])
+    t0 = time.perf_counter()            # stage 4's sampling alone, to split off its file writes
+    gen.sample_video()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+
+    def stages(sec):
+        return ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+
+    print(f"pipeline path [{card}]: generator.main() on an 8 s 44.1 kHz WAV + 128^2 portrait, "
+          f"assetless (random HuBERT-large, reemb6 x 2, 128^2 DAWN 20 DDIM steps UNet bf16 LFG "
+          f"f32): cache files (1, 7), (1, 8), ({t}, 1024), ({t}, 6), ({t}, 2); video "
+          f"{vid.shape} in [{lo:.4f}, {hi:.4f}], {pngs} PNGs, {mp4_frames}-frame mp4 (ffmpeg "
+          f"{'found' if shutil.which('ffmpeg') else 'absent: silent mp4, no mux'}); launches "
+          f"K1 {launches[0]}, K3 {launches[2]} (others 0)", flush=True)
+    print(f"pipeline path [{card}]: cold CLI call {cold:.3f} s ({stages(cold_stages)}), peak "
+          f"memory {cold_peak:.2f} GiB", flush=True)
+    print(f"pipeline path [{card}]: warm call {warm:.3f} s = {t / warm:.2f} frames/s end to "
+          f"end ({stages(gen.stage_seconds)}), peak memory {warm_peak:.2f} GiB; stage 4's "
+          f"sampling alone (sample_video: cache files in, frames on the host out) "
+          f"{sample_s:.3f} s, stage 4 minus it "
+          f"{gen.stage_seconds['generate_final_video'] - sample_s:+.3f} s (the 200 PNGs and "
+          f"the mp4, plus the difference between two sampling calls)", flush=True)
+    profile(gen.run, card, "pipeline profile")
+    del gen
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _wrappers():
@@ -1671,6 +1852,8 @@ def main():
     k1 = phase(kernel_k1, smi, rates)
     phase(parity)
     sample = phase(video_path, smi, 200, timed=True)
+    phase(pipeline_parity)
+    pipeline = phase(pipeline_path, smi)
     k2 = phase(kernel_k2, smi, rates)
     phase(train_parity)
     train = phase(train_path, smi)
@@ -1694,14 +1877,14 @@ def main():
     seq_train = phase(seq_training, smi, mesh)
     dist.destroy_process_group()
     shutil.rmtree(store)
-    paths = {"sample": sample, "train": train, "seq_sample": seq_sample,
+    paths = {"pipeline": pipeline, "sample": sample, "train": train, "seq_sample": seq_sample,
              "seq_train": seq_train,
              "sample_T400": phase(video_path, smi, 400, timed=True),
              "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
              "temporal_attention_grad_T400": grad_t400}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
-    rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "sample"),
+    rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,
              "train"),
             ("K3 local_attention_tiled", "local_attention.cu", 116, k3, "sample_T400"),

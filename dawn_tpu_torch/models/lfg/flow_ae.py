@@ -42,6 +42,8 @@ class FlowAE(nn.Module):
         ``generator.pixelwise_flow_predictor``). Every parameter and running
         statistic of the port must be in the file; its other entries (the
         anti-alias kernels the port builds itself) are skipped."""
+        from dawn_tpu_torch.weights.checkpoints import load_strict
+
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         flow_prefix = "pixelwise_flow_predictor."
         gen = ckpt["generator"]
@@ -53,11 +55,7 @@ class FlowAE(nn.Module):
             self.bg_predictor: ckpt["bg_predictor"],
         }
         for module, sd in parts.items():
-            own = module.state_dict()
-            missing = [k for k in own if k not in sd]
-            if missing:
-                raise KeyError(f"{path}: missing {missing[:8]}")
-            module.load_state_dict({k: sd[k] for k in own})
+            load_strict(module, sd, path)
 
     def teacher_outputs(self, ref_img: torch.Tensor, video: torch.Tensor
                         ) -> Dict[str, torch.Tensor]:

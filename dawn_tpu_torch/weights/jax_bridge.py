@@ -7,12 +7,15 @@ nested dicts of numpy arrays, ``{'unet': {'params'}, 'generator': {'params',
 variables (generator, region, background and pixelwise-flow predictors), and
 ``load_dm_trainer_variables`` a port ``DMTrainer`` from the UNet params, the
 frozen teacher and mask-encoder variables and, optionally, the EMA params of
-a JAX trainer state.
-It is the inverse of the reference-checkpoint converter of the JAX package
-(``dawn_tpu/weights/torch_convert.py``), written anew here:
+a JAX trainer state. ``hubert_state_dict`` and ``pbnet_state_dict`` turn the
+JAX HuBERT params and PBnet CVAE variables into the port's state_dicts.
+It is the inverse of the reference-checkpoint converters of the JAX package
+(``dawn_tpu/weights/torch_convert.py``, ``hubert_convert.py``), written anew
+here:
 
 - Dense (in, out) -> Linear.weight (out, in);
 - HWIO conv -> OIHW, or (O, I, 1, kh, kw) for the UNet's per-frame Conv3d;
+  (k, I, O) conv1d -> (O, I, k);
 - the pre-flipped HWIO Upsample kernel -> ConvTranspose3d (I, O, 1, kh, kw);
 - GroupNorm / BatchNorm scale, bias -> weight, bias; BatchNorm mean, var ->
   running_mean, running_var;
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from dawn_tpu_torch.ops.convs import unflip_conv_transpose_weight
+from dawn_tpu_torch.weights.checkpoints import load_strict
 
 StateDict = Dict[str, np.ndarray]
 
@@ -201,19 +205,103 @@ def face_loc_state_dict(variables: Mapping[str, Any]) -> StateDict:
             **_under("conv2", _conv2d(variables["params"]["conv2"]))}
 
 
+def _conv1d(p: Mapping[str, Any]) -> StateDict:
+    sd = {"weight": np.transpose(np.asarray(p["kernel"]), (2, 1, 0))}
+    if "bias" in p:
+        sd["bias"] = np.asarray(p["bias"])
+    return sd
+
+
+def hubert_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """The JAX HubertModel params -> the port's (HF-named) state_dict; the
+    position conv's kernel is the effective one (no weight norm)."""
+    fe = params["feature_extractor"]
+    sd: StateDict = {
+        **_under("feature_projection.layer_norm", _norm(params["fp_layer_norm"])),
+        **_under("feature_projection.projection", _dense(params["fp_projection"])),
+        **_under("encoder.pos_conv_embed.conv", _conv1d(params["pos_conv_embed"]["conv"])),
+        **_under("encoder.layer_norm", _norm(params["encoder_layer_norm"])),
+    }
+    i = 0
+    while f"conv_{i}" in fe:
+        pfx = f"feature_extractor.conv_layers.{i}"
+        sd.update(_under(f"{pfx}.conv", _conv1d(fe[f"conv_{i}"])))
+        norm = fe.get(f"layer_norm_{i}", fe.get("group_norm") if i == 0 else None)
+        if norm is not None:
+            sd.update(_under(f"{pfx}.layer_norm", _norm(norm)))
+        i += 1
+    i = 0
+    while f"layers_{i}" in params:
+        lp, pfx = params[f"layers_{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.update(_under(f"{pfx}.attention.{name}", _dense(lp[name])))
+        for name in ("intermediate_dense", "output_dense"):
+            sd.update(_under(f"{pfx}.feed_forward.{name}", _dense(lp[name])))
+        for name in ("layer_norm", "final_layer_norm"):
+            sd.update(_under(f"{pfx}.{name}", _norm(lp[name])))
+        i += 1
+    return sd
+
+
+def _pbnet_encoder(p: Mapping[str, Any]) -> StateDict:
+    sd: StateDict = {}
+    for name in ("firstposeEmbedding", "poseEmbedding", "audioEmbedding", "mu_layer",
+                 "sigma_layer"):
+        sd.update(_under(name, _dense(p[name])))
+    i = 0
+    while f"layers_{i}" in p:
+        lp, pfx = p[f"layers_{i}"], f"seqTransEncoder.layers.{i}"
+        sd[f"{pfx}.self_attn.in_proj_weight"] = np.asarray(lp["in_proj"]["kernel"]).T
+        sd[f"{pfx}.self_attn.in_proj_bias"] = np.asarray(lp["in_proj"]["bias"])
+        sd.update(_under(f"{pfx}.self_attn.out_proj", _dense(lp["out_proj"])))
+        for name in ("linear1", "linear2"):
+            sd.update(_under(f"{pfx}.{name}", _dense(lp[name])))
+        for name in ("norm1", "norm2"):
+            sd.update(_under(f"{pfx}.{name}", _norm(lp[name])))
+        i += 1
+    return sd
+
+
+def _pbnet_decoder(p: Mapping[str, Any]) -> StateDict:
+    sd: StateDict = {"init_temporal_attn.fn.norm.gamma": np.asarray(p["init_attn_norm_gamma"])}
+    for name in ("firstposeEmbedding", "audioEmbedding", "ztimelinear", "init_proj",
+                 "finallayer"):
+        sd.update(_under(name, _dense(p[name])))
+    for name in ("time_rel_pos_bias_tgt", "time_rel_pos_bias_mem"):
+        sd[f"{name}.relative_attention_bias.weight"] = np.asarray(
+            p[name]["relative_attention_bias"])
+    for name in ("to_qkv", "to_out"):
+        sd.update(_under(f"init_temporal_attn.fn.fn.{name}",
+                         _dense(p["init_temporal_attn"][name])))
+    i = 0
+    while f"decoder_layers_{i}" in p:
+        lp, pfx = p[f"decoder_layers_{i}"], f"seqTransDecoder.decoder_layers.{i}"
+        for name in ("to_qkv", "to_out"):
+            sd.update(_under(f"{pfx}.self_attn.{name}", _dense(lp["self_attn"][name])))
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            sd.update(_under(f"{pfx}.multihead_attn.{name}",
+                             _dense(lp["multihead_attn"][name])))
+        for j in (1, 2):
+            sd.update(_under(f"{pfx}.ffn.linear{j}", _dense(lp[f"ffn_linear{j}"])))
+        for j in (1, 2, 3):
+            sd.update(_under(f"{pfx}.layer_norm{j}", _norm(lp[f"layer_norm{j}"])))
+        i += 1
+    return sd
+
+
+def pbnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX PBnet CVAE variables {'encoder': {'params'}, 'decoder':
+    {'params'}} (the reemb family) -> the port's (reference-named)
+    state_dict."""
+    return {**_under("encoder", _pbnet_encoder(variables["encoder"]["params"])),
+            **_under("decoder", _pbnet_decoder(variables["decoder"]["params"]))}
+
+
 def load_state(module: torch.nn.Module, sd: StateDict) -> None:
     """Copy ``sd`` into ``module``; every parameter and statistic must be
-    covered (only BatchNorm's num_batches_tracked has no JAX counterpart)."""
-    own = module.state_dict()
-    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
-    unexpected = [k for k in sd if k not in own]
-    if missing or unexpected:
-        raise KeyError(f"missing {missing[:8]}, unexpected {unexpected[:8]}")
-    with torch.no_grad():
-        for k, v in sd.items():
-            if own[k].shape != v.shape:
-                raise ValueError(f"{k}: shape {v.shape} != {tuple(own[k].shape)}")
-            own[k].copy_(torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)))
+    covered (only BatchNorm's num_batches_tracked has no JAX counterpart),
+    and ``sd`` may hold nothing else."""
+    load_strict(module, sd, "JAX parameters", extra_ok=False)
 
 
 def load_flow_diffusion_variables(model, variables: Mapping[str, Any]) -> None:
