@@ -11,10 +11,10 @@ done" line with its seconds), any failure exits non-zero:
 2. build   - nvcc builds every kernel source under dawn_tpu_torch/csrc; ptxas's
    registers per kernel, and each kernel's HMMA (tensor-core) instructions
    from cuobjdump -sass (every instantiation of the bf16 forward body, both
-   layouts and both walks, and of the two backward passes in both layouts
-   must have some).
-   routes  - bf16 K1, K3, K6 and K2 called for half a second each under
-   the profiler: K1 and K3 must run the tensor-core forward and not the
+   layouts and its three ways of forming P, and of the two backward passes
+   in both layouts must have some).
+   routes  - bf16 K1, K1p, K3, K6 and K2 called for half a second each under
+   the profiler: K1, K1p and K3 must run the tensor-core forward and not the
    CUDA-core one, K6 and K2 the two tensor-core passes and not the f32 ones
    (nor the old whole-sequence K2 body).
 3. kernel K1 - the windowed-attention kernel against its plain PyTorch
@@ -28,6 +28,13 @@ done" line with its seconds), any failure exits non-zero:
    bias and window mask, a yardstick the port never calls) are timed with
    CUDA events, beside the least time the card could take (bytes over
    memory rate, operations over peak rate).
+   kernel K1p - K1 with the exponent's argument rounded to bf16 (the JAX
+   kernel's prob_dtype) against its plain version on dyadic inputs (exact
+   scores), f32 and bf16: the main shape, T=20 w=20, T=77, no bias, w=300 at
+   T=200, w=40 at T=37; f32 within 1e-5 of max|ref|, bf16 within one ulp
+   but for the flips of P's rounding that exp's last bit causes (at most
+   1e-3 of the entries, which K1's kernel exceeds); at the main shape the
+   kernel, the plain version, SDPA and the bound, and K1p's MSE against K1.
 4. parity  - a 40-frame, 2-step f32 sample_one_video at full width runs on the
    card (kernel) and on the CPU (plain path), same weights and noise, TF32
    off; max error of the output video at tolerance 1e-3.
@@ -42,6 +49,12 @@ done" line with its seconds), any failure exits non-zero:
    TF32 off, the same weights: HuBERT-large at full width on 2 s of audio
    (max error within 1e-3 of max|ref|) and the two reemb6 PBnets' pose and
    blink drives at T=200 with the same z (atol 1e-4).
+   face prep parity - stage 1, card against CPU, f32, TF32 off, on seeded
+   assets at the release files' shapes: FaceBoxes on a 607 x 1080 input and
+   MobileNet-V1 on 120^2 crops (1e-4 of max|ref|), then extract_init_states
+   on a 1080p portrait stage by stage (the first box, the ROI's integers, the
+   62 parameters from the same box, the states from the same parameters,
+   end to end when the integers agree), cold and warm seconds.
    pipeline path - the whole pipeline through the CLI's entry point
    (``python -m dawn_tpu_torch.pipeline.generator``'s ``main()``) on a
    synthetic 8 s 44.1 kHz WAV and a 128^2 portrait, assetless (random
@@ -51,7 +64,10 @@ done" line with its seconds), any failure exits non-zero:
    and no other kernel; each stage's seconds of the cold CLI call and of a
    warm second run, frames/s end to end, peak memory, stage 4's sampling
    timed once more alone (against stage 4: the file writes, within the
-   sampling call's spread), and the warm run under the profiler.
+   sampling call's spread), and the warm run under the profiler; then two
+   more runs with seeded face assets, so that stage 1 runs FaceBoxes and
+   the 3DDFA MobileNet (init_pose not the default; each stage's seconds,
+   the first run loading the assets).
 7. kernel K2 - the windowed-attention backward against its plain version on
    the card (TF32 off), case by case (stage-1 shape f32 and bf16, stage 2 at
    T=40, T=77, T=1, T=129, T=256, no bias, each in f32 and bf16; windows
@@ -136,9 +152,14 @@ done" line with its seconds), any failure exits non-zero:
    train-parity's tolerances; then 2 full-width bf16 stage-2 steps (bs 4, 40
    diffused frames): finite losses, exactly 10 K5 + 10 K6 launches a step,
    the warm step's time.
-19. kernels - one JSON line listing every ported kernel (K1-K6) with its
-   numbers and its launches on every path (K1's ``launches``: the pipeline
-   path's CLI call).
+   bench attention - on that process group, ``python -m
+   dawn_tpu_torch.scripts.bench_attention``'s main() at the sampling top
+   level with --prob-dtype bf16 --stripe 2 --seq-composed: every line of
+   the JAX script's printed, K1p, K1, K3, K5 and K6 launched.
+19. kernels - one JSON line listing every ported kernel (K1-K6, K1p) with
+   its numbers and its launches on every path (K1's ``launches``: the
+   pipeline path's CLI call; K1p's: the bench attention call, K1p's only
+   caller).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -230,9 +251,9 @@ def kernels_run(fn, seconds=0.5):
 
 
 def kernel_routes():
-    """Phase: which kernels bf16 K1, K3, K6 and K2 launch, under the profiler
-    at the start of the run: K1 and K3 the tensor-core forward and not the
-    CUDA-core one, K6 and K2 the two tensor-core passes and not the f32 ones.
+    """Phase: which kernels bf16 K1, K1p, K3, K6 and K2 launch, under the
+    profiler at the start of the run: K1, K1p and K3 the tensor-core forward
+    and not the CUDA-core one, K6 and K2 the two tensor-core passes and not the f32 ones.
     Launches here are not counted on any path."""
     import torch
     from dawn_tpu_torch.ops import local_attention as la
@@ -247,6 +268,12 @@ def kernel_routes():
     check(any("attn_fwd_mma_kernel" in x for x in ran)
           and not any("local_attn_fwd_kernel" in x for x in ran),
           f"bf16 K1 did not run the tensor-core body alone: {sorted(ran)}")
+    ran = kernels_run(lambda: la.local_attention_packed(q, k, v, vec, w, 8,
+                                                        prob_dtype=torch.bfloat16))
+    print(f"kernel routes: bf16 K1p under the profiler: {sorted(ran)}", flush=True)
+    check(any("attn_fwd_mma_kernel" in x for x in ran)
+          and not any("local_attn_fwd_kernel" in x for x in ran),
+          f"bf16 K1p did not run the tensor-core body alone: {sorted(ran)}")
     n, t, w = 1024, 400, 40                       # K3 at the 400-frame top level
     q, k, v, vec = _tiled_inputs(gen, n, t, 8, w, torch.bfloat16)
     ran = kernels_run(lambda: la.local_attention_tiled(q, k, v, vec, w))
@@ -348,6 +375,103 @@ def kernel_k1(card, rates):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def dyadic_packed(gen, n, t, heads, w, dtype, bias=True):
+    """q, k, v (N, T, heads*32) and the (heads, 2w+1) bias vector on the
+    card, q and k on a dyadic grid (q in multiples of 1/16 in [-1, 1], k of
+    1/8 in [-2, 2], the bias of 1/64 in [-2, 2]): every score is exact in f32
+    whatever the order of its sum, so the bf16 rounding of s - m is the same
+    in the kernel and its plain version."""
+    import torch
+    shape = (n, t, heads * 32)
+    q = torch.randint(-16, 17, shape, device="cuda", generator=gen) / 16.0
+    k = torch.randint(-16, 17, shape, device="cuda", generator=gen) / 8.0
+    v = torch.randn(shape, device="cuda", generator=gen)
+    vec = (torch.randint(-128, 129, (heads, 2 * w + 1), device="cuda", generator=gen) / 64.0
+           if bias else None)
+    return q.to(dtype), k.to(dtype), v.to(dtype), vec
+
+
+def kernel_k1p(card, rates):
+    """Phase: K1p (K1 with the exponent's argument rounded to bf16) against
+    its plain version on dyadic inputs, f32 and bf16; timings at the main
+    shape. f32 (the CUDA-core body): within 1e-5 of max|ref|. bf16 (the
+    tensor-core body): every entry within one bf16 ulp of itself plus 2^-14
+    of max|ref|, except where exp's last f32 bit, taken by two
+    implementations (the kernel's expf, PyTorch's exp), flips the bf16
+    rounding of a p: one flip moves an output by at most 2^-8 max|v| (a p
+    below 1 has a bf16 ulp of at most 2^-8, and the row sum is at least 1),
+    so all entries within one ulp of max|ref| plus 2^-7 max|v| (two flips in
+    a row) and at most 1e-3 of them past one ulp. K1's kernel on the same inputs, held against
+    K1p's plain version the same way, must fail the one-ulp share."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dawn_tpu_torch.ops import local_attention as la
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main", 1024, 200, 40, True), ("T=20 w=20", 1024, 20, 20, True),
+             ("T=77 w=20", 256, 77, 20, True), ("no bias", 256, 200, 40, False),
+             ("w=300 T=200", 64, 200, 300, True), ("w=40 T=37", 256, 37, 40, True)]
+
+    def past_ulp(got, ref):
+        """Share of entries further from ref than one bf16 ulp of ref plus
+        2^-14 of max|ref|, and the largest error."""
+        err = (got.float() - ref.float()).abs()
+        tol = 2.0 ** -7 * ref.float().abs() + 2.0 ** -14 * ref.float().abs().max()
+        return (err > tol).float().mean().item(), err.max().item()
+
+    errs = {}
+    for name, n, t, w, bias in cases:
+        for dtype in (f32, bf16):
+            q, k, v, vec = dyadic_packed(gen, n, t, 8, w, dtype, bias)
+            got = la.local_attention_packed(q, k, v, vec, w, 8, prob_dtype=bf16)
+            ref = la.local_attention_packed_plain(q, k, v, vec, w, 8, prob_dtype=bf16)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            share, err = past_ulp(got, ref)
+            label = f"kernel K1p {name}: N={n} T={t} 8 x 32 w={w} {str(dtype)[6:]}"
+            if dtype == f32:
+                ok = err <= 1e-5 * scale
+                print(f"{label} max_abs_err={err:.3e} = {err / scale:.3e} of max|ref| "
+                      f"{scale:.3e}, tol 1e-5 of max|ref|", flush=True)
+            else:
+                bound = 2.0 ** -7 * (scale + v.float().abs().max().item())
+                share_k1, _ = past_ulp(la.local_attention_packed(q, k, v, vec, w, 8), ref)
+                ok = err <= bound and share <= 1e-3 and share_k1 > 1e-3
+                print(f"{label} max_abs_err={err:.3e} (tol {bound:.3e}: one ulp of max|ref| + "
+                      f"2^-7 max|v|), entries past one bf16 ulp {share:.2e} (tol 1e-3); K1's "
+                      f"kernel against K1p's plain version: {share_k1:.2e} past one ulp "
+                      f"(must exceed 1e-3)", flush=True)
+            errs[f"{name} {str(dtype)[6:]}"] = err
+            check(ok and np.isfinite(err), f"{label}: error {err}, past one ulp {share}")
+
+    n, t, w = 1024, 200, 40
+    q, k, v, vec = dyadic_packed(gen, n, t, 8, w, bf16)
+    k1p = lambda: la.local_attention_packed(q, k, v, vec, w, 8, prob_dtype=bf16)  # noqa: E731
+    ms = time_ms(k1p, 20)
+    plain_ms = time_ms(lambda: la.local_attention_packed_plain(q, k, v, vec, w, 8,
+                                                               prob_dtype=bf16), 5)
+    k1_ms = time_ms(lambda: la.local_attention_packed(q, k, v, vec, w, 8), 20)
+    q4, k4, v4 = (x.view(n, t, 8, 32).transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = la.windowed_bias(t, w, vec, "cuda").to(bf16)[None]    # (1, H, T, T)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                                scale=1.0), 20)
+    mse_k1 = ((k1p().float() - la.local_attention_packed(q, k, v, vec, w, 8).float()) ** 2
+              ).mean().item()
+    bytes_moved = 4 * n * t * 8 * 32 * 2 + vec.numel() * 4
+    flops = 4 * 32 * band_entries(t, w) * n * 8
+    bound_ms, bound_by = _bound(bytes_moved, flops, rates)
+    print(f"kernel K1p timing [{card}] main shape bf16: kernel {ms:.4f} ms (K1 {k1_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, library (sdpa with the (H, T, T) bias) {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); MSE of K1p against K1 {mse_k1:.3e}", flush=True)
+    return dict(max_abs_err=errs["main bfloat16"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def write_hdtf_tree(root, lengths, size, seed):
     """A synthetic chunked-npy HDTF tree (the layout of scripts/bench_train.py
     --input-pipeline): per video and modality 25-frame chunk_%04d.npy blocks,
@@ -374,6 +498,80 @@ def write_hdtf_tree(root, lengths, size, seed):
         pickle.dump(dict(lengths), f)
     return [f"--{kind}-dir={os.path.join(root, kind)}" for kind, _ in kinds] + [
         f"--length-dict={os.path.join(root, 'length_dict.pkl')}"]
+
+
+BFM_VERTICES = 38365     # the dense vertices of bfm_noneck_v3.pkl
+
+
+def write_face_assets(root, seed, layout="flat", faceboxes_sd=None, tddfa_sd=None):
+    """Seeded random stage-1 assets at the release files' shapes, in the
+    layout ``load_face_assets`` reads: ``flat`` puts the four files at the
+    top of ``root`` (FaceBoxesProd.pth a bare state_dict, mb1_120x120.pth a
+    ``{'state_dict'}`` with ``module.`` names), ``3ddfa`` as a 3DDFA-V2
+    checkout keeps them (FaceBoxes/weights/, weights/, configs/; FaceBoxes'
+    names ``module.``-prefixed too). The nets are seeded port modules with
+    random BatchNorm statistics, or the given state_dicts; the BFM bases
+    (3 * 38365, 40 + 10) and the parameters' mean and std put the face's
+    vertices around the middle of the 120^2 crop. Returns ``root``."""
+    import pickle
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.models.face3d.faceboxes_net import FaceBoxesNet
+    from dawn_tpu_torch.models.face3d.mobilenet import MobileNetV1
+
+    rng = np.random.RandomState(seed)
+    sds = []
+    for net, given in ((FaceBoxesNet, faceboxes_sd), (MobileNetV1, tddfa_sd)):
+        if given is not None:
+            sds.append({k: torch.as_tensor(np.asarray(v)) for k, v in given.items()})
+            continue
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sd = net(device="cpu").state_dict()
+        for k, v in sd.items():
+            if k.endswith("running_mean"):
+                sd[k] = torch.from_numpy(0.1 * rng.randn(*v.shape).astype(np.float32))
+            elif k.endswith("running_var"):
+                sd[k] = torch.from_numpy(0.5 + rng.rand(*v.shape).astype(np.float32))
+        if net is FaceBoxesNet:
+            # random weights may score no anchor as a face: lift every
+            # anchor's class-1 logit so that some pass the 0.2 threshold
+            for i in range(3):
+                sd[f"conf.{i}.bias"][1::2] += 2.0
+        sds.append(sd)
+    fb, mb = sds
+    n = 3 * BFM_VERTICES
+    kp = rng.choice(BFM_VERTICES, 68, replace=False)
+    bfm = {"u": (30.0 * rng.randn(n, 1)).astype(np.float32),
+           "w_shp": rng.randn(n, 40).astype(np.float32),
+           "w_exp": rng.randn(n, 10).astype(np.float32),
+           "keypoints": (3 * kp[:, None] + np.arange(3)).reshape(-1).astype(np.int64)}
+    mean, std = np.zeros(62, np.float32), np.ones(62, np.float32)
+    mean[:12] = [1, 0, 0, 60, 0, 1, 0, 60, 0, 0, 1, 0]     # R ~ I, the crop's middle
+    std[:12] = [0.05, 0.05, 0.05, 2.0] * 3
+
+    def module(sd):
+        return {f"module.{k}": v for k, v in sd.items()}
+
+    if layout == "flat":
+        files = {"FaceBoxesProd.pth": fb, "mb1_120x120.pth": {"state_dict": module(mb)},
+                 "bfm_noneck_v3.pkl": bfm,
+                 "param_mean_std_62d_120x120.pkl": {"mean": mean, "std": std}}
+    else:
+        files = {os.path.join("FaceBoxes", "weights", "FaceBoxesProd.pth"): module(fb),
+                 os.path.join("weights", "mb1_120x120.pth"): {"state_dict": module(mb)},
+                 os.path.join("configs", "bfm_noneck_v3.pkl"): bfm,
+                 os.path.join("configs", "param_mean_std_62d_120x120.pkl"):
+                     {"mean": mean, "std": std}}
+    for rel, obj in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if rel.endswith(".pth"):
+            torch.save(obj, path)
+        else:
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+    return root
 
 
 def band_entries(t, w):
@@ -541,8 +739,8 @@ def parity(t=40):
     _reset_counts()
     out_gpu = gpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"].cpu()
     launches = _counts()
-    want = tuple(10 * steps if i == kernel else 0 for i in range(6))
-    check(launches == want, f"parity launches (K1-K6) {launches} != {want}")
+    want = tuple(10 * steps if i == kernel else 0 for i in range(7))
+    check(launches == want, f"parity launches (K1-K6, K1p) {launches} != {want}")
     t0 = time.perf_counter()
     out_cpu = cpu.sample_one_video(**inp, noise_seq=noise)["sample_out_vid"]
     cpu_s = time.perf_counter() - t0
@@ -673,7 +871,7 @@ def pipeline_path(card):
     200 PNGs and a 200-frame mp4, and exactly 200 K1 launches and no other
     kernel; then a warm second run of the same generator (again 200 K1),
     stage 4's sampling alone, and a run under the profiler. Returns the
-    (K1-K6) launches of the CLI's run."""
+    (K1-K6, K1p) launches of the CLI's run."""
     import tempfile
     import cv2
     import numpy as np
@@ -696,7 +894,7 @@ def pipeline_path(card):
         gen = run()
         secs = time.perf_counter() - t0
         launches = _counts()
-        check(launches == (t, 0, 0, 0, 0, 0), f"pipeline launches (K1-K6) {launches}")
+        check(launches == (t, 0, 0, 0, 0, 0, 0), f"pipeline launches (K1-K6, K1p) {launches}")
         return gen, secs, launches, torch.cuda.max_memory_allocated() / 2**30
 
     gen, cold, launches, cold_peak = checked_run(lambda: generator.main(argv))
@@ -743,18 +941,184 @@ def pipeline_path(card):
           f"{gen.stage_seconds['generate_final_video'] - sample_s:+.3f} s (the 200 PNGs and "
           f"the mp4, plus the difference between two sampling calls)", flush=True)
     profile(gen.run, card, "pipeline profile")
+
+    # stage 1 with face assets: seeded random nets and BFM bases at the
+    # release files' shapes, so that it runs FaceBoxes and the 3DDFA MobileNet
+    gen.paths.tddfa_onnx_dir = write_face_assets(os.path.join(root, "face_assets"), SEED + 31)
+    gen, face_cold, _, _ = checked_run(lambda: (gen.run(), gen)[1])
+    face_cold_stages = dict(gen.stage_seconds)
+    gen, face_warm, _, face_peak = checked_run(lambda: (gen.run(), gen)[1])
+    pose = np.load(os.path.join(cache, "init_pose.npy"))
+    eye_bbox = np.load(os.path.join(cache, "init_eye_bbox.npy"))
+    check(pose.shape == (1, 7) and eye_bbox.shape == (1, 8) and np.isfinite(pose).all()
+          and np.isfinite(eye_bbox).all() and not np.array_equal(pose, generator.DEFAULT_POSE),
+          f"stage 1 with face assets: pose {pose}, eye_bbox {eye_bbox}")
+    print(f"pipeline path [{card}]: with face assets (seeded FaceBoxes, MobileNet-V1, BFM): "
+          f"init_pose {pose.round(4).tolist()}, init_eye_bbox {eye_bbox.round(4).tolist()}; "
+          f"first call {face_cold:.3f} s ({stages(face_cold_stages)}; stage 1 loads the "
+          f"assets), warm {face_warm:.3f} s ({stages(gen.stage_seconds)}), peak memory "
+          f"{face_peak:.2f} GiB; K1 x 200 each", flush=True)
     del gen
     shutil.rmtree(root)
     torch.cuda.empty_cache()
     return launches
 
 
+def face_prep_parity(card):
+    """Phase: stage 1, card against CPU, f32, TF32 off, on the same seeded
+    assets (``write_face_assets``: the release files' shapes and layouts).
+    FaceBoxes on a 607 x 1080 input (a 1920 x 1080 frame after the 720 x 1080
+    cap) and MobileNet-V1 on eight 120^2 crops: loc, conf and the 62
+    parameters within 1e-4 of max|ref|. Then ``extract_init_states`` on that
+    1080p portrait stage by stage: the first box within 1e-4 of max|ref|; the
+    ROI's integers (``int(old_size * 1.58)``, the crop's rounded bounds, which
+    turn a 1e-6 difference of a box into a whole pixel) compared and printed;
+    the 62 parameters from the CPU's box on both sides within 1e-4 of
+    max|ref|; pose, eye ratios and bbox from the CPU's parameters equal (host
+    code); and end to end (pose and eye ratios within 1e-4 of max|ref|, the
+    bbox equal) when the ROI's integers agree. The card's stage 1, cold and
+    warm."""
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.pipeline import face_prep as fp
+    from dawn_tpu_torch.weights.checkpoints import load_face_assets
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="dawn_face_")
+    write_face_assets(root, SEED + 90)
+    gpu, cpu = load_face_assets(root, "cuda"), load_face_assets(root, "cpu")
+    rng = np.random.RandomState(SEED + 91)
+    h, w = 1080, 1920
+    yy, xx = np.mgrid[0:h, 0:w] / h
+    face = np.stack([0.35 + 0.3 * np.exp(-((xx - 0.9) ** 2 + (yy - 0.45) ** 2) / 0.06),
+                     0.45 + 0.2 * yy, 0.5 + 0.1 * xx], axis=-1)
+    path = os.path.join(root, "portrait_1080p.png")
+    cv2.imwrite(path, np.clip(255 * face + 6 * rng.randn(h, w, 3), 0, 255).astype(np.uint8))
+    img = cv2.imread(path)
+
+    def rel(got, ref):
+        got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+    x = (cv2.resize(img, (1080, 607)).astype(np.float32) - fp.BGR_MEAN).transpose(2, 0, 1)[None]
+    (loc, conf), (ref_loc, ref_conf) = fp.run_net(gpu.faceboxes)(x), fp.run_net(cpu.faceboxes)(x)
+    crops = ((rng.rand(8, 3, 120, 120) * 255 - 127.5) / 128).astype(np.float32)
+    par, ref_par = fp.run_net(gpu.tddfa)(crops), fp.run_net(cpu.tddfa)(crops)
+    errs = [rel(loc, ref_loc), rel(conf, ref_conf), rel(par, ref_par)]
+    print(f"face prep parity: FaceBoxes on (1, 3, 607, 1080) -> loc {loc.shape}, conf "
+          f"{conf.shape}; MobileNet-V1 on (8, 3, 120, 120) -> {par.shape}; card vs CPU, f32, "
+          f"TF32 off: max err / max|ref| loc {errs[0]:.3e}, conf {errs[1]:.3e}, 62 params "
+          f"{errs[2]:.3e} (tol 1e-4)", flush=True)
+    check(loc.shape == (1, 13781, 4) and conf.shape == (1, 13781, 2) and max(errs) <= 1e-4,
+          f"face nets card vs CPU: {errs}")
+
+    boxes = fp.detect_faces(img, fp.run_net(gpu.faceboxes))
+    ref_boxes = fp.detect_faces(img, fp.run_net(cpu.faceboxes))
+    check(len(boxes) > 0 and len(ref_boxes) > 0, f"boxes: card {len(boxes)}, CPU {len(ref_boxes)}")
+    box_err = rel(boxes[0], ref_boxes[0])
+
+    def roi_integers(box):
+        roi = fp.parse_roi_box_from_bbox(box)
+        old = (box[2] - box[0] + box[3] - box[1]) / 2
+        return int(old * 1.58), [int(round(v)) for v in roi]
+
+    same_roi = roi_integers(boxes[0]) == roi_integers(ref_boxes[0])
+    ref_params, ref_rois = fp.regress_3dmm(img, ref_boxes[:1], fp.run_net(cpu.tddfa),
+                                           param_mean=cpu.param_mean, param_std=cpu.param_std)
+    params, rois = fp.regress_3dmm(img, ref_boxes[:1], fp.run_net(gpu.tddfa),
+                                   param_mean=gpu.param_mean, param_std=gpu.param_std)
+    param_err = rel(params[0], ref_params[0])
+    states = fp.states_from_params(img.shape, ref_params, ref_rois, gpu.bfm)
+    ref_states = fp.states_from_params(img.shape, ref_params, ref_rois, cpu.bfm)
+    states_equal = all(np.array_equal(a, b) for a, b in zip(states, ref_states))
+    print(f"face prep parity: 1080p portrait: {len(boxes)} boxes on the card, {len(ref_boxes)} "
+          f"on the CPU; first box {np.round(ref_boxes[0], 2).tolist()}, max err / max|ref| "
+          f"{box_err:.3e} (tol 1e-4); ROI integers {roi_integers(ref_boxes[0])} "
+          f"{'agree' if same_roi else 'DIFFER: ' + str(roi_integers(boxes[0]))}; 62 params "
+          f"from the CPU's box {param_err:.3e} (tol 1e-4); pose, eye ratios and bbox from the "
+          f"CPU's params {'equal' if states_equal else 'UNEQUAL'}", flush=True)
+    check(box_err <= 1e-4 and param_err <= 1e-4 and states_equal,
+          f"stage 1 card vs CPU: box {box_err}, params {param_err}")
+    t0 = time.perf_counter()
+    pose, eye_bbox = fp.extract_init_states(path, gpu)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp.extract_init_states(path, gpu)
+    warm = time.perf_counter() - t0
+    ref_pose, ref_eye_bbox = fp.extract_init_states(path, cpu)
+    if same_roi:
+        end = [rel(pose, ref_pose), rel(eye_bbox[:, :2], ref_eye_bbox[:, :2])]
+        print(f"face prep parity: extract_init_states end to end, card vs CPU: pose "
+              f"{pose.round(4).tolist()}, max err / max|ref| pose {end[0]:.3e}, eye ratios "
+              f"{end[1]:.3e} (tol 1e-4), bbox {eye_bbox[0, 2:].tolist()} "
+              f"{'equal' if np.array_equal(eye_bbox[:, 2:], ref_eye_bbox[:, 2:]) else 'UNEQUAL'}",
+              flush=True)
+        check(max(end) <= 1e-4 and np.array_equal(eye_bbox[:, 2:], ref_eye_bbox[:, 2:]),
+              f"extract_init_states card vs CPU: {end}")
+    else:
+        print("face prep parity: the ROI integers differ, so the end-to-end states are not "
+              "compared", flush=True)
+    print(f"face prep parity [{card}]: extract_init_states on the 1080p portrait on the card "
+          f"(FaceBoxes and MobileNet-V1 there, the rest on the host) cold {cold:.3f} s, warm "
+          f"{warm:.3f} s", flush=True)
+    shutil.rmtree(root)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def bench_attention(card):
+    """Phase: the port's attention micro-benchmark, ``python -m
+    dawn_tpu_torch.scripts.bench_attention``'s ``main()`` once at the sampling
+    top level (N=1024, T=200, 8 x 32, w=40, bf16) with ``--prob-dtype bf16
+    --stripe 2 --seq-composed``, on the open one-rank process group: every
+    line printed, K1p, K1, K3, K5 and K6 launched, the MSEs of equal
+    functions below 1e-4 and K1p's against K1 below 1e-3. Returns the
+    launches (K1-K6, K1p) of that call."""
+    import contextlib
+    import io
+    import math
+    import torch
+    from dawn_tpu_torch.scripts import bench_attention as bench
+
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = bench.main(["--prob-dtype", "bf16", "--stripe", "2", "--seq-composed"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"bench attention [{card}]: {line}", flush=True)
+    lines = ("banded :", "pallas :", "pallas-vs-banded MSE", "packed :", "packed bf16-prob-tiles",
+             "stripe pallas (", "stripe einsum", "stripe pallas-vs-einsum MSE",
+             "stripe fused fwd+bwd", "seq-composed fwd", "packed whole-T reference",
+             "composed-vs-packed MSE", "seq-composed fused fwd+bwd", "full   :",
+             "pallas-vs-full MSE")
+    missing = [x for x in lines if x not in text]
+    k1, _, k3, _, k5, k6, k1p = launches
+    print(f"bench attention [{card}]: main() in {secs:.1f} s, launches K1 {k1}, K3 {k3}, K5 "
+          f"{k5}, K6 {k6}, K1p {k1p} (K2 {launches[1]}, K4 {launches[3]})", flush=True)
+    check(not missing, f"bench attention lines missing: {missing}")
+    check(min(k1p, k1, k3, k5, k6) > 0, f"bench attention launches (K1-K6, K1p) {launches}")
+    mses = [res[k] for k in ("pallas_vs_banded_mse", "stripe_mse", "composed_mse")]
+    check(all(math.isfinite(m) and m < 1e-4 for m in mses) and res["prob_vs_packed_mse"] < 1e-3,
+          f"bench attention MSEs {mses}, K1p vs K1 {res['prob_vs_packed_mse']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _wrappers():
-    """The kernel wrappers K1-K6, each with its launch count."""
+    """The kernel wrappers K1-K6 and K1p, each with its launch count."""
     from dawn_tpu_torch.ops import local_attention as la
     return (la.local_attention_packed, la.local_attention_packed_bwd,
             la.local_attention_tiled, la.local_attention_tiled_bwd,
-            la.local_attention_packed_stripe, la.local_attention_packed_stripe_bwd)
+            la.local_attention_packed_stripe, la.local_attention_packed_stripe_bwd,
+            la.local_attention_packed_prob)
 
 
 def _reset_counts():
@@ -763,7 +1127,7 @@ def _reset_counts():
 
 
 def _counts():
-    """(K1, ..., K6) launches since the last reset."""
+    """(K1, ..., K6, K1p) launches since the last reset."""
     return tuple(fn.launches for fn in _wrappers())
 
 
@@ -807,8 +1171,8 @@ def train_parity():
     got = gpu.train_step(batch, draws)
     launches = _counts()
     want = cpu.train_step(batch, draws)
-    check(launches == (10, 10, 0, 0, 0, 0),
-          f"train-parity launches (K1-K6) {launches} != (10, 10, 0, 0, 0, 0)")
+    check(launches == (10, 10, 0, 0, 0, 0, 0),
+          f"train-parity launches (K1-K6, K1p) {launches} != (10, 10, 0, 0, 0, 0, 0)")
     for k in ("loss", "floss", "mouth_loss", "total"):
         check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
               f"train-parity {k}: {got[k]} vs {want[k]}")
@@ -879,8 +1243,8 @@ def train_path(card):
     secs = time.perf_counter() - t0
     launches1 = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(launches1 == (10 * steps, 10 * steps, 0, 0, 0, 0),
-          f"stage-1 launches (K1-K6) {launches1} != {10 * steps} K1 and K2")
+    check(launches1 == (10 * steps, 10 * steps, 0, 0, 0, 0, 0),
+          f"stage-1 launches (K1-K6, K1p) {launches1} != {10 * steps} K1 and K2")
     lines = [json.loads(x) for x in open(os.path.join(work1, "metrics.jsonl"))]
     check([x["step"] for x in lines] == list(range(steps)), "stage-1 metrics.jsonl steps")
     check(all(np.isfinite(x[k]) for x in lines for k in ("total", "loss", "floss", "mouth_loss"))
@@ -929,8 +1293,8 @@ def train_path(card):
                          f"--steps={steps2}", "--log-every=1", f"--workdir={work2}"])
     secs2 = time.perf_counter() - t0
     launches2 = _counts()
-    check(launches2 == (10 * steps2, 10 * steps2, 0, 0, 0, 0),
-          f"stage-2 launches (K1-K6) {launches2} != {10 * steps2} K1 and K2")
+    check(launches2 == (10 * steps2, 10 * steps2, 0, 0, 0, 0, 0),
+          f"stage-2 launches (K1-K6, K1p) {launches2} != {10 * steps2} K1 and K2")
     lines2 = [json.loads(x) for x in open(os.path.join(work2, "metrics.jsonl"))]
     check(trainer2.step == steps2 and all(np.isfinite(x["total"]) for x in lines2),
           "stage-2 losses not finite")
@@ -1086,7 +1450,7 @@ def kernel_k4(card, rates):
     out = la.local_attention(*leaves, w)
     check(out.grad_fn is not None, "K3 output on the card has no grad_fn")
     got = torch.autograd.grad(out, leaves, g)
-    check(_counts() == (0, 0, 1, 1, 0, 0), f"autograd launches (K1-K6) {_counts()}")
+    check(_counts() == (0, 0, 1, 1, 0, 0, 0), f"autograd launches (K1-K6, K1p) {_counts()}")
     ref = torch.autograd.grad(la.local_attention_banded(*leaves, w), leaves, g)
     err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
     print(f"kernel K4 autograd: grad of local_attention on the card (K3 + K4) vs autograd of "
@@ -1100,7 +1464,7 @@ def kernel_k4(card, rates):
     leaves = [x.clone().requires_grad_() for x in (q, k, v, vec)]
     _reset_counts()
     got = torch.autograd.grad(la.local_attention(*leaves, w), leaves, g)
-    check(_counts() == (0, 0, 1, 1, 0, 0), f"bf16 autograd launches (K1-K6) {_counts()}")
+    check(_counts() == (0, 0, 1, 1, 0, 0, 0), f"bf16 autograd launches (K1-K6, K1p) {_counts()}")
     ref = torch.autograd.grad(la.local_attention_banded(*leaves, w), leaves, g)
     errs = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
             for a, b in zip(got, ref)]
@@ -1170,7 +1534,7 @@ def temporal_attention_grad(card):
     got = grads()
     torch.cuda.synchronize()
     launches = _counts()
-    check(launches == (0, 0, 1, 1, 0, 0), f"TemporalAttention launches (K1-K6) {launches}")
+    check(launches == (0, 0, 1, 1, 0, 0, 0), f"TemporalAttention launches (K1-K6, K1p) {launches}")
     with mock.patch.object(unet3d, "local_attention", la.local_attention_banded):
         ref = grads()
     errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref)]
@@ -1223,8 +1587,8 @@ def video_path(card, t, img_size=128, decode_chunk=0, timed=False):
     lo, hi = vid.min().item(), vid.max().item()
     check(0.0 <= lo and hi <= 1.0, f"video range [{lo}, {hi}]")
     kernel = 0 if t <= 256 else 2                 # K1, or K3 past the packed range
-    want = tuple(200 if i == kernel else 0 for i in range(6))
-    check(launches == want, f"launches (K1-K6) {launches} != {want}")
+    want = tuple(200 if i == kernel else 0 for i in range(7))
+    check(launches == want, f"launches (K1-K6, K1p) {launches} != {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     what = "path" + ("" if t == 200 else f" T={t}") + ("" if img_size == 128 else f" {img_size}^2")
     print(f"{what} [{card}]: {img_size}^2 T={t} 20 DDIM steps UNet bf16 LFG f32 decode chunk "
@@ -1524,7 +1888,7 @@ def kernel_k6(card, rates):
     _reset_counts()
     out = la.local_attention_packed_stripe(*leaves, w, 8, True, False)
     got = torch.autograd.grad(out, leaves, g)
-    check(_counts() == (0, 0, 0, 0, 1, 1), f"stripe autograd launches (K1-K6) {_counts()}")
+    check(_counts() == (0, 0, 0, 0, 1, 1, 0), f"stripe autograd launches (K1-K6, K1p) {_counts()}")
     bias = la.stripe_bias(8, t_loc, w, leaves[3], left_edge=True)
     ref = torch.autograd.grad(la.local_attention_packed_stripe_plain(*leaves[:3], bias, 8),
                               leaves, g)
@@ -1637,7 +2001,7 @@ def seq_sampling(card, mesh):
     """Phase: the seq sampler on a one-rank NCCL mesh with the stripe
     forced (halo exchange, K5, the GroupNorm all-reduce and the quantile
     all-gather through NCCL): f32 parity at T=40 against sample_one_video
-    (K1), then the 200-frame, 20-step bf16 video. Returns the (K1-K6)
+    (K1), then the 200-frame, 20-step bf16 video. Returns the (K1-K6, K1p)
     launches of the 200-frame call."""
     import torch
     from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
@@ -1660,8 +2024,9 @@ def seq_sampling(card, mesh):
     got = gather_frames(model.make_seq_sampler(mesh)(**inp, noise_seq=noise)["sample_out_vid"],
                         mesh)
     launches = _counts()
-    check(ref_launches == (10 * steps, 0, 0, 0, 0, 0) and launches == (0, 0, 0, 0, 10 * steps, 0),
-          f"seq parity launches (K1-K6) {ref_launches} / {launches}")
+    check(ref_launches == (10 * steps, 0, 0, 0, 0, 0, 0)
+          and launches == (0, 0, 0, 0, 10 * steps, 0, 0),
+          f"seq parity launches (K1-K6, K1p) {ref_launches} / {launches}")
     err = (got - ref).abs().max().item()
     print(f"seq parity: make_seq_sampler on a one-rank NCCL mesh, stripe forced (K5 x "
           f"{launches[4]}), vs sample_one_video (K1 x {ref_launches[0]}), T={t} steps={steps} "
@@ -1697,7 +2062,7 @@ def seq_sampling(card, mesh):
     check(bool(torch.isfinite(vid).all()), "seq video has non-finite values")
     lo, hi = vid.min().item(), vid.max().item()
     check(0.0 <= lo and hi <= 1.0, f"seq video range [{lo}, {hi}]")
-    check(launches == (0, 0, 0, 0, 200, 0), f"seq path launches (K1-K6) {launches}")
+    check(launches == (0, 0, 0, 0, 200, 0, 0), f"seq path launches (K1-K6, K1p) {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"seq path [{card}]: make_seq_sampler, one-rank NCCL mesh, stripe forced, 128^2 "
           f"T={t} 20 DDIM steps UNet bf16 LFG f32: video {tuple(vid.shape)} in [{lo:.4f}, "
@@ -1713,7 +2078,7 @@ def seq_sampling(card, mesh):
 def seq_training(card, mesh):
     """Phase: DMTrainer.make_sharded_step on the one-rank NCCL mesh with the
     stripe forced: f32 parity against the unsharded step on the card, then
-    two full-width bf16 stage-2 steps. Returns the (K1-K6) launches of the
+    two full-width bf16 stage-2 steps. Returns the (K1-K6, K1p) launches of the
     stage-2 steps."""
     import numpy as np
     import torch
@@ -1746,8 +2111,8 @@ def seq_training(card, mesh):
     _reset_counts()
     got = seq_tr.make_sharded_step(mesh)(batch, draws)
     launches = _counts()
-    check(ref_launches == (10, 10, 0, 0, 0, 0) and launches == (0, 0, 0, 0, 10, 10),
-          f"seq train-parity launches (K1-K6) {ref_launches} / {launches}")
+    check(ref_launches == (10, 10, 0, 0, 0, 0, 0) and launches == (0, 0, 0, 0, 10, 10, 0),
+          f"seq train-parity launches (K1-K6, K1p) {ref_launches} / {launches}")
     for k in ("loss", "floss", "mouth_loss", "total"):
         check(abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])),
               f"seq train-parity {k}: {got[k]} vs {want[k]}")
@@ -1794,7 +2159,7 @@ def seq_training(card, mesh):
         totals.append(m["total"])
         check(np.isfinite(m["total"]) and m["grads_finite"] == 1.0, "seq train loss not finite")
     launches = _counts()
-    check(launches == (0, 0, 0, 0, 20, 20), f"seq train launches (K1-K6) {launches}")
+    check(launches == (0, 0, 0, 0, 20, 20, 0), f"seq train launches (K1-K6, K1p) {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"seq train path [{card}]: make_sharded_step, one-rank NCCL mesh, stripe forced, "
           f"stage 2 bs 4 x 40 diffused frames, 128^2 full width bf16, 2 steps: totals "
@@ -1832,10 +2197,11 @@ def main():
     hmma = sass_mma_counts(build)
     for fn, count in sorted(hmma.items()):
         print(f"build: sass {fn}: {count} HMMA", flush=True)
-    # the forward body in both layouts and walks (bf16 K1 and K5 packed with
-    # one walk, K3 split with two) and both layouts' passes (K4 split; K2 and
-    # K6 packed), each for 4-warp and 2-warp blocks
-    for entry, built in (("attn_fwd_mma_kernel", 4), ("bwd_query_mma_kernel", 4),
+    # the forward body in both layouts and its three ways of forming P (bf16
+    # K1 and K5 packed with one walk, K3 split with two, K1p packed with two)
+    # and both layouts' passes (K4 split; K2 and K6 packed), each for 4-warp
+    # and 2-warp blocks
+    for entry, built in (("attn_fwd_mma_kernel", 6), ("bwd_query_mma_kernel", 4),
                          ("bwd_key_mma_kernel", 4)):
         counts = [c for fn, c in hmma.items() if entry in fn]
         check(not hmma or (len(counts) == built and min(counts) > 0),
@@ -1850,9 +2216,11 @@ def main():
 
     phase(kernel_routes)
     k1 = phase(kernel_k1, smi, rates)
+    k1p = phase(kernel_k1p, smi, rates)
     phase(parity)
     sample = phase(video_path, smi, 200, timed=True)
     phase(pipeline_parity)
+    phase(face_prep_parity, smi)
     pipeline = phase(pipeline_path, smi)
     k2 = phase(kernel_k2, smi, rates)
     phase(train_parity)
@@ -1875,6 +2243,7 @@ def main():
     mesh = make_mesh()
     seq_sample = phase(seq_sampling, smi, mesh)
     seq_train = phase(seq_training, smi, mesh)
+    bench = phase(bench_attention, smi)
     dist.destroy_process_group()
     shutil.rmtree(store)
     paths = {"pipeline": pipeline, "sample": sample, "train": train, "seq_sample": seq_sample,
@@ -1882,7 +2251,7 @@ def main():
              "sample_T400": phase(video_path, smi, 400, timed=True),
              "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
-             "temporal_attention_grad_T400": grad_t400}
+             "temporal_attention_grad_T400": grad_t400, "bench_attention": bench}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,
@@ -1892,7 +2261,9 @@ def main():
              "temporal_attention_grad_T400"),
             ("K5 local_attention_packed_stripe", "local_attention.cu", 446, k5, "seq_sample"),
             ("K6 local_attention_packed_stripe_bwd", "local_attention_tiled_bwd.cu", 516, k6,
-             "seq_train")]
+             "seq_train"),
+            ("K1p local_attention_packed_prob", "local_attention.cu", 334, k1p,
+             "bench_attention")]
     kernels = [{"name": name, "route": "cuda", "source": f"dawn_tpu_torch/csrc/{src}",
                 "replaces": f"dawn_tpu/ops/local_attention.py:{line}",
                 "launches": paths[main_path][i], **measured,

@@ -1,4 +1,4 @@
-// K1, K3 and K5: windowed temporal attention, forward.
+// K1, K1p, K3 and K5: windowed temporal attention, forward.
 //
 // K1 replaces dawn_tpu/ops/local_attention.py::_local_attn_packed_kernel (the
 // Pallas TPU body launched by local_attention_packed) on the packed (N, T,
@@ -46,6 +46,19 @@
 // haloed k, v (94.4 MB each): 293.6 MB, about 88 us at 3.35 TB/s (rank 0
 // reads no masked halo row: 251.7 MB, 75 us).
 //
+// K1p replaces the same Pallas body with prob_dtype=bf16
+// (dawn_tpu/ops/local_attention.py:334-338, reached through
+// local_attention_packed(prob_dtype=) from scripts/bench_attention.py): on
+// K1's layout and shapes it forms p = exp(bf16(s - m)) with m the whole
+// row's f32 max, keeps that exp in f32, sums it in f32 and divides the
+// output by the sum once; P is rounded to the input dtype before P V as in
+// K1. A running max cannot give bf16(s - m) of the final m (rounding s -
+// m_running rounds another number), so both bodies take two walks: the f32
+// body's pass 1 already finds the max, and the tensor-core body walks the
+// band once for the max alone (max_chunk) and once for p, l and P V
+// (prob_pv_chunk). Same bytes as K1, so the same bound; forward only (the
+// JAX package defines no VJP with prob_dtype).
+//
 // Both bodies take one key range: a query row i sees the key rows j in
 // [i + key_off - w, i + key_off + w] cut to [kmin, kmax], with the bias
 // entry j - key_off - i + w. K1 and K3: key_off 0, keys [0, T). K5: key_off
@@ -77,23 +90,30 @@
 //     local_attention.py:339-346): one walk, exp(s - running max) rounded,
 //     the f32 row sum dividing the output once;
 //   - K3 (p / p.sum, then the cast, :149-152): the normalised p, so two
-//     walks (kRoundP). Walk 1 computes S and the online row max m and sum l,
-//     no P V; walk 2 recomputes S, rounds p = exp(s - m) / l to bf16 and
-//     accumulates P V, with no division at the end. K and V stay in shared
-//     memory, so walk 2 costs one more Q K^T a chunk and no bytes.
+//     walks (PMode::kNormalised). Walk 1 computes S and the online row max
+//     m and sum l, no P V; walk 2 recomputes S, rounds p = exp(s - m) / l
+//     to bf16 and accumulates P V, with no division at the end. K and V
+//     stay in shared memory, so walk 2 costs one more Q K^T a chunk and no
+//     bytes.
+//   - K1p (PMode::kProbTiles): two walks as K3's, walk 1 the row max alone,
+//     walk 2 p = exp(bf16(s - m)) unrounded in f32 into l, p rounded to bf16
+//     for P V, the output divided by l once.
 // Blocks are numbered tile-fastest, so the tiles of one (sequence, head),
 // whose bands share 2w key rows, run side by side and meet those rows in L2.
 // mma.sync and not wgmma: the kernel is bytes-bound with tensor throughput
 // to spare, and wgmma's 64-row tiles would make a warpgroup cover a
 // 64 + 2w = 144-key band where four 16-row warps need 96 keys each.
 // Any w with (64 + 2 * staged_rows(w, 4)) * 80 B + (2w + 1) * 4 B <= 227 KB
-// works: w <= 656 for K5 and for K3 past 657 frames, any w for K1. Rows that
-// all fit in 32 (stage 1's T = 20) take blocks of 2 warps (tile_warps), so
-// no warp idles and twice as many blocks fit an SM.
+// works: w <= 656 for K5 and for K3 past 657 frames, any w for K1 and K1p.
+// Rows that all fit in 32 (stage 1's T = 20) take blocks of 2 warps
+// (tile_warps), so no warp idles and twice as many blocks fit an SM.
 //
 // C interface (bound with ctypes):
 //   int dawn_local_attn_packed_fwd(q, k, v, bias, out, n, t, heads, dim_head,
 //                                  window, is_bf16, stream)      K1, (N, T, H*D)
+//   int dawn_local_attn_packed_prob_fwd(q, k, v, bias, out, n, t, heads,
+//                                       dim_head, window, is_bf16, stream)
+//                                                               K1p, (N, T, H*D)
 //   int dawn_local_attn_tiled_fwd(q, k, v, bias, out, n, t, heads, dim_head,
 //                                 window, is_bf16, stream)       K3, (N, H, T, D)
 //   int dawn_local_attn_stripe_fwd(q, k, v, bias, out, n, t_loc, heads,
@@ -103,8 +123,9 @@
 // each returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a shape it was not built for;
 //   int dawn_local_attn_max_window(kernel, t, is_bf16, with_bias_grad)
-// returns the largest window that kernel 1, 3 or 5 takes at T = t (K5: t_loc)
-// on the current device, INT_MAX for no limit, -1 for another kernel.
+// returns the largest window that kernel 1 (and K1p), 3 or 5 takes at T = t
+// (K5: t_loc) on the current device, INT_MAX for no limit, -1 for another
+// kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,9 +144,15 @@ struct KeyRange {
   int seq_k, key_off, kmin, kmax;
 };
 
+// x rounded to bf16 and back: K1p's rounding of the exponent's argument
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The CUDA-core body, f32. kPacked: the (N, T, H*D) layout, grid (N, H,
-// tiles); else (N, H, T, D), grid (N*H, tiles).
-template <int D, bool kPacked>
+// tiles); else (N, H, T, D), grid (N*H, tiles). kProbTiles: K1p's exp of
+// the bf16-rounded s - m.
+template <int D, bool kPacked, bool kProbTiles>
 __global__ void __launch_bounds__(kQueryTile)
 local_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
@@ -184,7 +211,8 @@ local_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // pass 2: exp, row sum and p.v
   float l = 0.f;
   for (int j = j0; j <= j1; ++j) {
-    const float p = expf(score(j) - m);
+    const float x = score(j) - m;
+    const float p = expf(kProbTiles ? round_bf16(x) : x);
     const float* vrow = vs + (j - k0) * kStride;
     l += p;
 #pragma unroll
@@ -203,12 +231,12 @@ size_t fwd_smem(int seq_k, int window) {
   return (2 * rows * (D + 1) + (2 * (size_t)window + 1)) * sizeof(float);
 }
 
-template <int D, bool kPacked>
+template <int D, bool kPacked, bool kProbTiles = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    int n, int seq_q, KeyRange kr, int heads, int window,
                    cudaStream_t stream) {
   const size_t smem = fwd_smem<D>(kr.seq_k, window);
-  auto kernel = local_attn_fwd_kernel<D, kPacked>;
+  auto kernel = local_attn_fwd_kernel<D, kPacked, kProbTiles>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -311,12 +339,59 @@ __device__ __forceinline__ void norm_pv_chunk(float (&o)[4][4], const float (&ba
   }
 }
 
+// K1p's walk 1, one chunk: the row max m alone.
+template <int NT>
+__device__ __forceinline__ void max_chunk(float (&m)[2], const uint32_t (&qa)[2][4],
+                                          const KeyBand& b, int c0, int lane) {
+  using namespace dawn_mma;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) band_scores(s[j], qa, b, c0 + 8 * j, lane);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+    m[hh] = fmaxf(m[hh], quad_max(mx));
+  }
+}
+
+// K1p's walk 2, one chunk: p = exp(bf16(s - m)) in f32 (base = the row max),
+// added to this lane's share of the row sum l, then P V with p rounded to
+// bf16.
+template <int NT>
+__device__ __forceinline__ void prob_pv_chunk(float (&o)[4][4], float (&l)[2],
+                                              const float (&base)[2], const uint32_t (&qa)[2][4],
+                                              const KeyBand& b, int c0, int lane) {
+  using namespace dawn_mma;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) band_scores(s[j], qa, b, c0 + 8 * j, lane);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s[j][r] = expf(round_bf16(s[j][r] - base[r >> 1]));
+      l[r >> 1] += s[j][r];
+    }
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    uint32_t pa[4];
+    pack_a(pa, s[2 * i], s[2 * i + 1]);   // P rounded to bf16
+    mma_rows(o, pa, b.vs, b.r0 + c0 + 16 * i, lane);
+  }
+}
+
+// How the tensor-core body forms P: one walk with the online softmax,
+// rounding the unnormalised P (K1, K5); two walks rounding the normalised P
+// (K3); two walks with the exponent's argument rounded (K1p).
+enum class PMode { kOnline, kNormalised, kProbTiles };
+
 // The tensor-core body, bf16: one block of kWarps warps per (sequence,
 // head, 64-row query tile), numbered tile-fastest (kWarps = 2 when seq_q <=
-// 32). kPacked: the (N, T, H*D) layout, else (N, H, T, D). kRoundP: K3's
-// two walks, rounding the normalised P; else one walk rounding the
-// unnormalised P. Head h's 2w+1 bias entries start at bias + h * bias_ld.
-template <bool kPacked, int kWarps, bool kRoundP>
+// 32). kPacked: the (N, T, H*D) layout, else (N, H, T, D). kMode: how P
+// is formed (PMode). Head h's 2w+1 bias entries start at bias + h * bias_ld.
+template <bool kPacked, int kWarps, PMode kMode>
 __global__ void __launch_bounds__(32 * kWarps)
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ bias, int bias_ld,
@@ -359,7 +434,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // multiple of 16)
   float o[4][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   int c0;
-  if (kRoundP) {
+  if (kMode == PMode::kNormalised) {
     for (c0 = 0; c0 + 32 <= nk; c0 += 32) max_sum_chunk<4>(m, l, qa, b, c0, lane);
     if (c0 < nk) max_sum_chunk<2>(m, l, qa, b, c0, lane);
     float base[2], inv[2];
@@ -371,6 +446,22 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     for (c0 = 0; c0 + 32 <= nk; c0 += 32) norm_pv_chunk<4>(o, base, inv, qa, b, c0, lane);
     if (c0 < nk) norm_pv_chunk<2>(o, base, inv, qa, b, c0, lane);
+  } else if (kMode == PMode::kProbTiles) {
+    for (c0 = 0; c0 + 32 <= nk; c0 += 32) max_chunk<4>(m, qa, b, c0, lane);
+    if (c0 < nk) max_chunk<2>(m, qa, b, c0, lane);
+    const float base[2] = {exp_base(m[0]), exp_base(m[1])};
+    for (c0 = 0; c0 + 32 <= nk; c0 += 32) prob_pv_chunk<4>(o, l, base, qa, b, c0, lane);
+    if (c0 < nk) prob_pv_chunk<2>(o, l, base, qa, b, c0, lane);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float lsum = quad_sum(l[hh]);
+      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;   // 0: a padding row with no key
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[n][2 * hh] *= inv;
+        o[n][2 * hh + 1] *= inv;
+      }
+    }
   } else {
     for (c0 = 0; c0 + 32 <= nk; c0 += 32) fwd_chunk<4>(o, m, l, qa, b, c0, lane);
     if (c0 < nk) fwd_chunk<2>(o, m, l, qa, b, c0, lane);
@@ -395,14 +486,14 @@ size_t mma_smem(int window, int warps) {
          (2 * (size_t)window + 1) * sizeof(float);
 }
 
-template <bool kPacked, bool kRoundP>
+template <bool kPacked, PMode kMode>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
                        int bias_ld, void* out, int n, int seq_q, KeyRange kr, int heads,
                        int window, cudaStream_t stream) {
   const int warps = dawn_mma::tile_warps(seq_q);
   const size_t smem = mma_smem(window, warps);
-  auto kernel = warps == 2 ? attn_fwd_mma_kernel<kPacked, 2, kRoundP>
-                           : attn_fwd_mma_kernel<kPacked, 4, kRoundP>;
+  auto kernel = warps == 2 ? attn_fwd_mma_kernel<kPacked, 2, kMode>
+                           : attn_fwd_mma_kernel<kPacked, 4, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -415,15 +506,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
-// K1 and K3 in bf16: the band clamped to w_eff = min(w, T - 1) (the same
-// keys), reading the bias entries [w - w_eff, w + w_eff] of each head's row.
-template <bool kPacked, bool kRoundP>
+// K1, K1p and K3 in bf16: the band clamped to w_eff = min(w, T - 1) (the
+// same keys), reading the bias entries [w - w_eff, w + w_eff] of each head's
+// row.
+template <bool kPacked, PMode kMode>
 cudaError_t launch_clamped(const void* q, const void* k, const void* v, const void* bias,
                            void* out, int n, int t, int heads, int window,
                            cudaStream_t stream) {
   const int w_eff = min(window, t - 1);
   const float* b = bias != nullptr ? static_cast<const float*>(bias) + (window - w_eff) : nullptr;
-  return launch_mma<kPacked, kRoundP>(q, k, v, b, 2 * window + 1, out, n, t,
+  return launch_mma<kPacked, kMode>(q, k, v, b, 2 * window + 1, out, n, t,
                                       KeyRange{t, 0, 0, t - 1}, heads, w_eff, stream);
 }
 
@@ -438,7 +530,20 @@ extern "C" int dawn_local_attn_packed_fwd(const void* q, const void* k, const vo
   if (!is_bf16)
     return (int)launch<32, true>(q, k, v, bias, out, n, t, KeyRange{t, 0, 0, t - 1}, heads,
                                  window, s);
-  return (int)launch_clamped<true, false>(q, k, v, bias, out, n, t, heads, window, s);
+  return (int)launch_clamped<true, PMode::kOnline>(q, k, v, bias, out, n, t, heads, window, s);
+}
+
+extern "C" int dawn_local_attn_packed_prob_fwd(const void* q, const void* k, const void* v,
+                                               const void* bias, void* out, int n, int t,
+                                               int heads, int dim_head, int window,
+                                               int is_bf16, void* stream) {
+  if (dim_head != 32 || window < 0 || t < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16)
+    return (int)launch<32, true, true>(q, k, v, bias, out, n, t, KeyRange{t, 0, 0, t - 1},
+                                       heads, window, s);
+  return (int)launch_clamped<true, PMode::kProbTiles>(q, k, v, bias, out, n, t, heads, window,
+                                                      s);
 }
 
 extern "C" int dawn_local_attn_tiled_fwd(const void* q, const void* k, const void* v,
@@ -450,7 +555,8 @@ extern "C" int dawn_local_attn_tiled_fwd(const void* q, const void* k, const voi
   if (!is_bf16)
     return (int)launch<32, false>(q, k, v, bias, out, n, t, KeyRange{t, 0, 0, t - 1}, heads,
                                   window, s);
-  return (int)launch_clamped<false, true>(q, k, v, bias, out, n, t, heads, window, s);
+  return (int)launch_clamped<false, PMode::kNormalised>(q, k, v, bias, out, n, t, heads,
+                                                       window, s);
 }
 
 extern "C" int dawn_local_attn_stripe_fwd(const void* q, const void* k, const void* v,
@@ -465,8 +571,9 @@ extern "C" int dawn_local_attn_stripe_fwd(const void* q, const void* k, const vo
                     right_edge ? window + t_loc - 1 : seq_k - 1};
   if (!is_bf16)
     return (int)launch<32, true>(q, k, v, bias, out, n, t_loc, kr, heads, window, s);
-  return (int)launch_mma<true, false>(q, k, v, static_cast<const float*>(bias),
-                                      2 * window + 1, out, n, t_loc, kr, heads, window, s);
+  return (int)launch_mma<true, PMode::kOnline>(q, k, v, static_cast<const float*>(bias),
+                                               2 * window + 1, out, n, t_loc, kr, heads, window,
+                                               s);
 }
 
 extern "C" int dawn_local_attn_max_window(int kernel, int t, int is_bf16, int with_bias_grad) {

@@ -1,4 +1,4 @@
-"""Windowed (local) temporal attention: plain PyTorch forms and kernels K1-K6.
+"""Windowed (local) temporal attention: plain PyTorch forms and kernels K1-K6, K1p.
 
 Semantics (those of ``dawn_tpu/ops/local_attention.py``): the weight of query
 i over key j is the softmax of q_i . k_j + b[j - i] for |j - i| <= window and
@@ -21,6 +21,10 @@ kernels stand for. In f32 the rounding is the identity.
   :func:`local_attention_packed_plain`. Its ``launches`` attribute counts
   kernel launches. Under autograd it goes through
   :class:`LocalAttentionPacked`, whose backward is K2.
+- :func:`local_attention_packed_prob`: K1p, K1 with the exponent's argument
+  rounded to bf16 (the JAX function's ``prob_dtype``), a fourth C entry in
+  ``csrc/local_attention.cu``; forward only. ``local_attention_packed(...,
+  prob_dtype=torch.bfloat16)`` calls it.
 - :func:`local_attention_packed_bwd`: K2, the backward, K4's two passes on
   the packed layout (a C entry in ``csrc/local_attention_tiled_bwd.cu``);
   :func:`local_attention_packed_bwd_plain` is its plain version.
@@ -140,9 +144,14 @@ def local_attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(n, h, t_pad, d)[:, :, :t].to(q.dtype)
 
 
+def _check_prob_dtype(prob_dtype) -> None:
+    if prob_dtype is not None and prob_dtype != torch.bfloat16:
+        raise ValueError(f"prob_dtype must be None or torch.bfloat16, got {prob_dtype!r}")
+
+
 def local_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  bias_vec: Optional[torch.Tensor], window: int,
-                                 heads: int) -> torch.Tensor:
+                                 heads: int, prob_dtype=None) -> torch.Tensor:
     """K1's function in plain PyTorch, (N, T, H*D) -> (N, T, H*D), any T.
 
     Whole-sequence (T, T) scores per head with the band folded into the
@@ -150,7 +159,15 @@ def local_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     unnormalised P = exp(s - row max) is rounded to the input dtype before
     P.V and the divisor is the f32 sum of the unrounded P, as in the Pallas
     kernel ``_local_attn_packed_kernel`` (``dawn_tpu/ops/local_attention.py:
-    339-346``)."""
+    339-346``).
+
+    ``prob_dtype=torch.bfloat16`` is K1p's function, the same kernel's
+    ``prob_dtype`` branch (``:334-338``) as XLA runs it: the exponent's
+    argument s - m (m the whole row's f32 max) is rounded to bf16, its exp
+    is taken and kept in f32 (not rounded again), the divisor is the f32
+    sum of that p, and p is rounded to the input dtype before P.V as
+    above."""
+    _check_prob_dtype(prob_dtype)
     n, t, hd = q.shape
     d = hd // heads
 
@@ -160,6 +177,8 @@ def local_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     s = split(q) @ split(k).transpose(-1, -2)
     s = s + windowed_bias(t, window, bias_vec, q.device)[None]
     s = s - s.amax(dim=-1, keepdim=True)
+    if prob_dtype is not None:
+        s = _rounded(s, prob_dtype)
     p = torch.exp(s)
     o = (_rounded(p, q.dtype) @ split(v)) / p.sum(dim=-1, keepdim=True)
     return o.transpose(1, 2).reshape(n, t, hd).to(q.dtype)
@@ -309,31 +328,37 @@ def _packed_dim_head(q: torch.Tensor, heads: int) -> int:
     return hd // heads
 
 
-def _forward(q, k, v, bias_vec, window: int, heads: int) -> torch.Tensor:
+def _forward(q, k, v, bias_vec, window: int, heads: int, prob_dtype=None) -> torch.Tensor:
     """K1 on a CUDA tensor (counted in ``local_attention_packed.launches``),
-    the plain version on a CPU tensor."""
+    or with ``prob_dtype`` K1p (counted in
+    ``local_attention_packed_prob.launches``); the plain version on a CPU
+    tensor."""
     if q.device.type == "cpu":
-        return local_attention_packed_plain(q, k, v, bias_vec, window, heads)
-    _check_kernel_inputs("K1", q, (("k", k), ("v", v)), bias_vec, window, heads,
+        return local_attention_packed_plain(q, k, v, bias_vec, window, heads, prob_dtype)
+    what, symbol, wrapper = (("K1", "dawn_local_attn_packed_fwd", local_attention_packed)
+                             if prob_dtype is None else
+                             ("K1p", "dawn_local_attn_packed_prob_fwd",
+                              local_attention_packed_prob))
+    _check_kernel_inputs(what, q, (("k", k), ("v", v)), bias_vec, window, heads,
                          _packed_dim_head(q, heads), PACKED_MAX_T)
     if q.dtype == torch.bfloat16:
-        _check_aligned("K1", (("q", q), ("k", k), ("v", v)))
+        _check_aligned(what, (("q", q), ("k", k), ("v", v)))
     n, t, hd = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _check_window("local_attention", 1, q, t, window)
-    lib = _library("local_attention", "dawn_local_attn_packed_fwd",
+    _check_window("local_attention", 1, q, t, window)   # K1p: K1's shared memory
+    lib = _library("local_attention", symbol,
                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dawn_local_attn_packed_fwd(
+        rc = getattr(lib, symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias_vec.data_ptr() if bias_vec is not None else None, out.data_ptr(),
             n, t, heads, hd // heads, window, _DTYPE_FLAG[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
-    local_attention_packed.launches += 1
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+    wrapper.launches += 1
     return out
 
 
@@ -413,9 +438,13 @@ class LocalAttentionPacked(torch.autograd.Function):
         return dq, dk, dv, (dvec if ctx.needs_input_grad[3] else None), None, None
 
 
+def _requires_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
+
+
 def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias_vec: Optional[torch.Tensor], window: int,
-                           heads: int) -> torch.Tensor:
+                           heads: int, prob_dtype=None) -> torch.Tensor:
     """K1: windowed attention on the packed (N, T, H*D) layout.
 
     A CUDA tensor launches the CUDA kernel (T <= 256, D = 32, f32 or bf16,
@@ -423,14 +452,40 @@ def local_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises; a CPU tensor takes the plain version. When
     grad mode is on and an input requires grad, the call goes through
     :class:`LocalAttentionPacked`, whose backward is K2. The ``launches``
-    attribute counts K1's kernel launches."""
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (q, k, v, bias_vec)):
+    attribute counts K1's kernel launches. ``prob_dtype=torch.bfloat16``
+    goes to K1p (:func:`local_attention_packed_prob`), which has no
+    backward."""
+    _check_prob_dtype(prob_dtype)
+    if prob_dtype is not None:
+        return local_attention_packed_prob(q, k, v, bias_vec, window, heads)
+    if _requires_grad(q, k, v, bias_vec):
         return LocalAttentionPacked.apply(q, k, v, bias_vec, window, heads)
     return _forward(q, k, v, bias_vec, window, heads)
 
 
 local_attention_packed.launches = 0
+
+
+def local_attention_packed_prob(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                bias_vec: Optional[torch.Tensor], window: int,
+                                heads: int) -> torch.Tensor:
+    """K1p: K1 with bf16 probability tiles, the counterpart of the JAX
+    package's ``local_attention_packed(prob_dtype=jnp.bfloat16)``; the
+    function of :func:`local_attention_packed_plain` with ``prob_dtype``.
+
+    A CUDA tensor launches ``dawn_local_attn_packed_prob_fwd`` in
+    ``csrc/local_attention.cu`` (K1's shapes and dtypes; bf16 on the tensor
+    cores) or raises; a CPU tensor takes the plain version. Forward only:
+    with grad on and an input requiring grad it raises, as the JAX package
+    defines no VJP for it. The ``launches`` attribute counts K1p's kernel
+    launches."""
+    if _requires_grad(q, k, v, bias_vec):
+        raise RuntimeError("K1p (prob_dtype) has no backward: the JAX package defines no "
+                           "VJP for it; call it under torch.no_grad() or on detached inputs")
+    return _forward(q, k, v, bias_vec, window, heads, torch.bfloat16)
+
+
+local_attention_packed_prob.launches = 0
 
 
 def local_attention_tiled_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -609,8 +664,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     off the TPU."""
     if q.device.type == "cpu":
         return local_attention_banded(q, k, v, bias_vec, window)
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (q, k, v, bias_vec)):
+    if _requires_grad(q, k, v, bias_vec):
         return LocalAttentionTiled.apply(q, k, v, bias_vec, window)
     return local_attention_tiled(q, k, v, bias_vec, window)
 
@@ -850,8 +904,7 @@ def local_attention_packed_stripe(q: torch.Tensor, kx: torch.Tensor, vx: torch.T
     requiring grad, the call goes through :class:`LocalAttentionStripe`,
     whose backward is K6. The ``launches`` attribute counts K5's kernel
     launches."""
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (q, kx, vx, bias_vec)):
+    if _requires_grad(q, kx, vx, bias_vec):
         return LocalAttentionStripe.apply(q, kx, vx, bias_vec, window, heads, left_edge,
                                           right_edge)
     return _stripe_forward(q, kx, vx, bias_vec, window, heads, left_edge, right_edge)

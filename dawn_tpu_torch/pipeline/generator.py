@@ -14,9 +14,12 @@ PBnet CVAEs, and ``FlowDiffusion.sample_one_video``, whose temporal
 attentions run K1 (200 launches for a 200-frame, 20-step video). Released
 checkpoints load through :mod:`dawn_tpu_torch.weights.checkpoints`; without
 them every model falls back to seeded random weights of its deployed
-topology, as the JAX generator does. The 3DDFA face-preparation stage is not
-ported (ROADMAP queue 1 item 9): without its assets stage 1 writes the
-documented default state, as the JAX stage does on such a machine.
+topology, as the JAX generator does. Stage 1 reads the portrait's face
+(:mod:`dawn_tpu_torch.pipeline.face_prep`: FaceBoxes and the 3DDFA
+MobileNet on the card, the BFM and pose math on the host) when
+``GeneratorPaths.tddfa_onnx_dir`` names the face assets; unset, it writes
+the documented default state. Where the JAX generator prints a failure of
+that stage and falls back to the default, the port raises it.
 """
 
 from __future__ import annotations
@@ -82,7 +85,7 @@ class GeneratorPaths:
     pbnet_blink_ckpt: Optional[str] = "./pretrain_models/pbnet_seperate/blink/checkpoint_95000.pth.tar"
     dawn_ckpt: Optional[str] = None       # DAWN_{128,256}.pth
     lfg_ckpt: Optional[str] = None        # LFG_*.pth
-    tddfa_onnx_dir: Optional[str] = None  # 3DDFA assets (stage 1, not ported)
+    tddfa_onnx_dir: Optional[str] = None  # stage 1's face assets (load_face_assets)
 
 
 class VideoGenerator:
@@ -124,6 +127,7 @@ class VideoGenerator:
         self._hubert = None
         self._pbnet: Dict[str, torch.nn.Module] = {}
         self._video_model = None
+        self._face_assets = None
         self.frames: Optional[np.ndarray] = None
         self.stage_seconds: Dict[str, float] = {}
 
@@ -166,15 +170,22 @@ class VideoGenerator:
 
     # ------------------------------------------------------------ stage 1
     def extract_pose(self) -> None:
-        """Face -> init_pose.npy (1, 7) + init_eye_bbox.npy (1, 8): the
-        reference's documented default state (:275-278). The 3DDFA stage that
-        reads the face is not ported: asking for it raises."""
-        if self.paths.tddfa_onnx_dir:
-            raise NotImplementedError(
-                "the 3DDFA face-preparation stage is not ported yet (ROADMAP queue 1 item 9); "
-                "leave tddfa_onnx_dir unset to use the default init state")
-        np.save(self._cache("init_pose.npy"), DEFAULT_POSE)
-        np.save(self._cache("init_eye_bbox.npy"), DEFAULT_EYE_BBOX)
+        """Face -> init_pose.npy (1, 7) + init_eye_bbox.npy (1, 8). With
+        ``paths.tddfa_onnx_dir`` set, the portrait's first face through
+        :func:`face_prep.extract_init_states` (the nets on this generator's
+        device, loaded once); a failure raises. Unset, the reference's
+        documented default state (:275-278)."""
+        if not self.paths.tddfa_onnx_dir:
+            pose, eye_bbox = DEFAULT_POSE, DEFAULT_EYE_BBOX
+        else:
+            from dawn_tpu_torch.pipeline.face_prep import extract_init_states
+            from dawn_tpu_torch.weights.checkpoints import load_face_assets
+
+            if self._face_assets is None:
+                self._face_assets = load_face_assets(self.paths.tddfa_onnx_dir, self.device)
+            pose, eye_bbox = extract_init_states(self.image_path, self._face_assets)
+        np.save(self._cache("init_pose.npy"), pose)
+        np.save(self._cache("init_eye_bbox.npy"), eye_bbox)
 
     # ------------------------------------------------------------ stage 2
     def _hubert_model(self):

@@ -18,12 +18,20 @@ names (the reference's rotary ``freqs`` buffers, the recomputed sinusoidal
   ``denoise_fn.`` prefix.
 - LFG: ``LFG_*.pth``, the generator's part only (``['generator']``), as
   sampling runs no other LFG net.
+- Stage 1's face assets (:func:`load_face_assets`): the 3DDFA-V2 and
+  FaceBoxes release files ``FaceBoxesProd.pth``, ``mb1_120x120.pth`` (its
+  ``state_dict`` entry unwrapped, ``module.`` stripped), and the two
+  pickles ``bfm_noneck_v3.pkl`` and ``param_mean_std_62d_120x120.pkl``,
+  read with an unpickler that admits numpy's array reconstruction and
+  nothing else. The JAX stage reads the ``.onnx`` graphs exported from them
+  through onnxruntime; the port reads the files themselves.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -146,3 +154,93 @@ def load_lfg_generator(model: torch.nn.Module, path: str) -> List[str]:
     ``pixelwise_flow_predictor.*``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return _report(path, load_strict(model.generator, ckpt["generator"], path))
+
+
+# ------------------------------------------------------- stage 1's face assets
+
+# the release files, and where a 3DDFA-V2 checkout keeps them
+FACE_FILES = {"faceboxes": "FaceBoxesProd.pth", "tddfa": "mb1_120x120.pth",
+              "bfm": "bfm_noneck_v3.pkl", "param_mean_std": "param_mean_std_62d_120x120.pkl"}
+FACE_DIRS = ("", "weights", os.path.join("FaceBoxes", "weights"), "configs")
+# the numpy globals a pickle of arrays needs (numpy 1's and numpy 2's names)
+_NUMPY_GLOBALS = {(mod, name) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")
+                  for name in ("_reconstruct", "scalar")} | {("numpy", "ndarray"),
+                                                             ("numpy", "dtype")}
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Admits numpy's array reconstruction and no other global, so a pickle
+    can build arrays, dicts and lists but call nothing else."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) not in _NUMPY_GLOBALS:
+            raise pickle.UnpicklingError(f"global {module}.{name} is not allowed in a "
+                                         "pickle of numpy arrays")
+        return super().find_class(module, name)
+
+
+def read_array_pickle(path: str) -> Any:
+    """A pickle of numpy arrays (dicts, lists, arrays), refusing any other
+    global; ``latin1`` reads the arrays of Python 2 pickles."""
+    with open(path, "rb") as f:
+        return _ArrayUnpickler(f, encoding="latin1").load()
+
+
+def find_face_files(root: str) -> Dict[str, str]:
+    """{asset: path} of the four release files under ``root`` (its top, or
+    a 3DDFA-V2 checkout's ``weights/``, ``FaceBoxes/weights/`` and
+    ``configs/``); raises FileNotFoundError naming those it lacks."""
+    found, missing = {}, []
+    for key, name in FACE_FILES.items():
+        hits = [os.path.join(root, sub, name) for sub in FACE_DIRS
+                if os.path.isfile(os.path.join(root, sub, name))]
+        if hits:
+            found[key] = hits[0]
+        else:
+            missing.append(name)
+    if missing:
+        onnx = sorted(f for f in os.listdir(root) if f.endswith(".onnx")) \
+            if os.path.isdir(root) else []
+        raise FileNotFoundError(
+            f"face assets in {root}: missing {missing}; stage 1 reads the release files "
+            f"{sorted(FACE_FILES.values())} at the top of the directory or in a 3DDFA-V2 "
+            f"checkout's {[d for d in FACE_DIRS if d]}"
+            + (f" (the .onnx graphs {onnx} are not read)" if onnx else ""))
+    return found
+
+
+def _release_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A release ``.pth``: its ``state_dict`` entry if it has one, with the
+    ``module.`` prefix of a DataParallel save stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def load_face_assets(root: str, device=None):
+    """Stage 1's assets from the release files under ``root``
+    (:func:`find_face_files`) -> a ``pipeline.face_prep.FaceAssets``: the
+    FaceBoxes and MobileNet-V1 nets on ``device`` (the card by default),
+    the BFM bases (the first 40 shape and 10 expression columns, as the
+    reference's BFMModel takes them) and the parameters' mean and std."""
+    from dawn_tpu_torch.models.face3d.bfm import BFMReconstructor
+    from dawn_tpu_torch.models.face3d.faceboxes_net import FaceBoxesNet
+    from dawn_tpu_torch.models.face3d.mobilenet import MobileNetV1
+    from dawn_tpu_torch.pipeline.face_prep import FaceAssets
+
+    files = find_face_files(root)
+    nets = {}
+    for key, module in (("faceboxes", FaceBoxesNet(device=device)),
+                        ("tddfa", MobileNetV1(device=device))):
+        path = files[key]
+        _report(path, load_strict(module, _release_state_dict(path), path))
+        nets[key] = module
+    bfm = read_array_pickle(files["bfm"])
+    ms = read_array_pickle(files["param_mean_std"])
+    return FaceAssets(
+        faceboxes=nets["faceboxes"], tddfa=nets["tddfa"],
+        bfm=BFMReconstructor(np.asarray(bfm["u"]), np.asarray(bfm["w_shp"])[..., :40],
+                             np.asarray(bfm["w_exp"])[..., :10], bfm.get("keypoints")),
+        param_mean=np.asarray(ms["mean"], np.float32),
+        param_std=np.asarray(ms["std"], np.float32))

@@ -8,7 +8,10 @@ variables (generator, region, background and pixelwise-flow predictors), and
 ``load_dm_trainer_variables`` a port ``DMTrainer`` from the UNet params, the
 frozen teacher and mask-encoder variables and, optionally, the EMA params of
 a JAX trainer state. ``hubert_state_dict`` and ``pbnet_state_dict`` turn the
-JAX HuBERT params and PBnet CVAE variables into the port's state_dicts.
+JAX HuBERT params and PBnet CVAE variables into the port's state_dicts, and
+``faceboxes_state_dict``, ``mobilenet_state_dict``,
+``mobilenet_v3_state_dict`` and ``resnet22_state_dict`` stage 1's face nets
+(params and batch_stats) into the release files' layouts.
 It is the inverse of the reference-checkpoint converters of the JAX package
 (``dawn_tpu/weights/torch_convert.py``, ``hubert_convert.py``), written anew
 here:
@@ -295,6 +298,94 @@ def pbnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
     state_dict."""
     return {**_under("encoder", _pbnet_encoder(variables["encoder"]["params"])),
             **_under("decoder", _pbnet_decoder(variables["decoder"]["params"]))}
+
+
+# ------------------------------------------------------- stage 1's face nets
+
+def _bn(p: Mapping[str, Any], s: Mapping[str, Any]) -> StateDict:
+    """Flax BatchNorm params + batch_stats -> BatchNorm2d's entries."""
+    return {**_norm(p), "running_mean": np.asarray(s["mean"]),
+            "running_var": np.asarray(s["var"])}
+
+
+def _conv_bn(p: Mapping[str, Any], s: Mapping[str, Any], conv: str, bn: str,
+             to_conv: str, to_bn: str) -> StateDict:
+    return {**_under(to_conv, _conv2d(p[conv])), **_under(to_bn, _bn(p[bn], s[bn]))}
+
+
+def faceboxes_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX FaceBoxesNet {params, batch_stats} -> the port's (the release
+    file's) state_dict: conv1/conv2 ``convbn`` -> ``conv1.conv``/``.bn``,
+    inception branches and conv3_*/conv4_* ``conv``/``bn``, ``loc_i`` ->
+    ``loc.i``, ``conf_i`` -> ``conf.i``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for name in ("conv1", "conv2"):
+        sd.update(_under(name, _conv_bn(p[name]["convbn"], s[name]["convbn"], "conv", "bn",
+                                        "conv", "bn")))
+    for name in p:
+        if name.startswith("inception"):
+            for br in p[name]:
+                sd.update(_under(f"{name}.{br}",
+                                 _conv_bn(p[name][br], s[name][br], "conv", "bn", "conv", "bn")))
+        elif name.startswith(("conv3_", "conv4_")):
+            sd.update(_under(name, _conv_bn(p[name], s[name], "conv", "bn", "conv", "bn")))
+        elif name.startswith(("loc_", "conf_")):
+            head, _, i = name.partition("_")
+            sd.update(_under(f"{head}.{i}", _conv2d(p[name])))
+    return sd
+
+
+def mobilenet_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX MobileNetV1 {params, batch_stats} -> the reference
+    ``mobilenet_1`` state_dict (any widen factor): the inverse of
+    ``convert_mobilenet``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {**_under("conv1", _conv2d(p["conv1"])), **_under("bn1", _bn(p["bn1"], s["bn1"])),
+          **_under("fc", _dense(p["fc"]))}
+    for name in p:
+        if name.startswith("dw"):
+            for conv, bn in (("conv_dw", "bn_dw"), ("conv_sep", "bn_sep")):
+                sd.update(_under(name, _conv_bn(p[name], s[name], conv, bn, conv, bn)))
+    return sd
+
+
+def mobilenet_v3_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX MobileNetV3 {params, batch_stats} -> the reference
+    state_dict (small or large): the inverse of ``convert_mobilenet_v3``."""
+    p, s = variables["params"], variables["batch_stats"]
+    blocks = sum(1 for name in p if name.startswith("b") and name[1:].isdigit())
+    t = 1 + blocks
+    sd = {**_conv_bn(p, s, "stem", "stem_bn", "features.0.0", "features.0.1"),
+          **_conv_bn(p, s, "tail", "tail_bn", f"features.{t}.0", f"features.{t}.1"),
+          **_under(f"features.{t + 2}", _conv2d(p["head"])), **_under("fc", _dense(p["fc"]))}
+    for i in range(blocks):
+        bp, bs, pre = p[f"b{i}"], s[f"b{i}"], f"features.{1 + i}.conv"
+        for conv, idx in (("pw", 0), ("dw", 3), ("pw_lin", 7)):
+            sd.update(_conv_bn(bp, bs, conv, f"{conv}_bn", f"{pre}.{idx}", f"{pre}.{idx + 1}"))
+        if "se" in bp:
+            sd[f"{pre}.5.fc.0.weight"] = np.asarray(bp["se"]["fc1"]["kernel"]).T
+            sd[f"{pre}.5.fc.2.weight"] = np.asarray(bp["se"]["fc2"]["kernel"]).T
+    return sd
+
+
+def resnet22_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX ResNet22 {params, batch_stats} -> the reference state_dict:
+    the inverse of ``convert_resnet22``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {**_conv_bn(p, s, "conv1", "bn1", "conv1", "bn1"),
+          **_conv_bn(p, s, "conv2", "bn2", "conv2", "bn2"),
+          **_under("conv_param", _conv2d(p["conv_param"]))}
+    for name in p:
+        if name.startswith("layer"):
+            layer, _, bi = name.partition("_")
+            pre = f"{layer}.{bi}"
+            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+                sd.update(_under(pre, _conv_bn(p[name], s[name], conv, bn, conv, bn)))
+            if "down_conv" in p[name]:
+                sd.update(_under(pre, _conv_bn(p[name], s[name], "down_conv", "down_bn",
+                                               "downsample.0", "downsample.1")))
+    return sd
 
 
 def load_state(module: torch.nn.Module, sd: StateDict) -> None:

@@ -209,7 +209,8 @@ def test_missing_assets_raise(tmp_path):
                                               tddfa_onnx_dir=str(tmp_path)), device="cpu")
     with pytest.raises(FileNotFoundError, match="nope"):
         gen.process_audio()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # stage 1 with a face-asset directory that holds none of the release files
+    with pytest.raises(FileNotFoundError, match="FaceBoxesProd.pth"):
         gen.extract_pose()
 
 
