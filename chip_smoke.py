@@ -89,6 +89,30 @@ done" line with its seconds), any failure exits non-zero:
    round trip, and exactly 10 K1 and 10 K2 launches per step; reports the
    warm step time, examples/s, peak memory, and under torch.profiler the
    device's busy share and the kernels with the most device time.
+   lfg train parity - one f32 LFGTrainer step (train-mode BatchNorm, the
+   VGG19 perceptual pyramid, the TPS equivariance) at the full
+   configs/lfg_hdtf128.yaml widths, B=2 at 128^2, seeded VGG19, card against
+   CPU, TF32 off, same weights and warp draws: loss terms, running
+   statistics, Adam's first moment per net (and both f32 gradients against
+   a float64 one, per net and per leaf, with each net's worst leaf) and the
+   update, each with its error and tolerance; the covariances' singular-
+   value ratio, held below 0.95.
+   lfg train path - warm LFGTrainer steps at the config's batch size 100,
+   128^2, f32 (cuDNN TF32): ms per step, examples/s, peak memory, the
+   device's busy share under the profiler; finite losses, running
+   statistics moved.
+   pbnet train parity - one PBnetTrainer step (the CVAE loss with KL
+   annealing and the 1-D PatchGAN), reemb6 at the shipped width, dropout 0,
+   B=4 at T=40 with ragged lengths, card against CPU: metrics, G's and D's
+   first moments and updates.
+   pbnet train path - pose and blink at the JAX script's defaults (batch 32
+   x 100 frames, dropout on): ms per step and peak memory.
+   trainer clis - ``python -m dawn_tpu_torch.scripts.train_lfg`` (batch 8)
+   and ``... train_pbnet --kind pose|blink`` for 3 steps each on a synthetic
+   HDTF tree; their checkpoints read back strictly by the inference loaders
+   on the card (FlowAE.load_reference_checkpoint, load_lfg_generator into
+   a FlowDiffusion, load_pbnet_with_opt), the PBnets' drives finite. No
+   kernel of the port lies on these paths: every count stays 0.
 10. kernel K3 - the tiled windowed-attention forward on the (N, H, T, D)
    layout against its plain version (the banded form) on the card, TF32 off:
    T=400 and T=800 at the 128^2 top level (N=1024, 8 x 32, w=40) in f32 and
@@ -159,7 +183,8 @@ done" line with its seconds), any failure exits non-zero:
 19. kernels - one JSON line listing every ported kernel (K1-K6, K1p) with
    its numbers and its launches on every path (K1's ``launches``: the
    pipeline path's CLI call; K1p's: the bench attention call, K1p's only
-   caller).
+   caller; the trainer paths lfg_train, pbnet_train and trainer_clis with
+   0 for every kernel).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -1309,6 +1334,379 @@ def train_path(card):
     return tuple(a + b for a, b in zip(launches1, launches2))
 
 
+def _update_errors(pairs, before, mu, lr, clear_of_max):
+    """(max |mu_card - mu_cpu| over the largest |mu_cpu|, the largest update
+    difference, and that difference where |mu| is above ``clear_of_max`` of
+    the largest, less 1e-6 of the old value) over (card, cpu) parameter
+    pairs: Adam's first step is about lr * sign(g), so elements with a
+    clear gradient agree to 1e-7 and the rest to 2 lr + 1e-7."""
+    top = max(m_cpu.abs().max().item() for _, m_cpu in mu)
+    mu_err = max((a.cpu() - c).abs().max().item() for a, c in mu) / top
+    upd_err = clear_err = 0.0
+    for (a, c), old, (_, m) in zip(pairs, before, mu):
+        diff = (a.detach().cpu() - c.detach()).abs()
+        upd_err = max(upd_err, diff.max().item())
+        clear = m.abs() > clear_of_max * top
+        if clear.any():
+            clear_err = max(clear_err, (diff[clear] - 1e-6 * old[clear].abs()).max().item())
+    return mu_err, upd_err, clear_err
+
+
+def lfg_train_parity():
+    """Phase: one f32 LFGTrainer step at the full configs/lfg_hdtf128.yaml
+    widths, B=2 at 128^2, seeded VGG19, the card against the CPU, TF32 off,
+    the same weights and warp draws (frames uniform in [0, 1] from
+    RandomState(SEED + 31)): loss terms (rtol 1e-4), running statistics
+    (1e-4 of each buffer's largest magnitude), the gradient per net (Adam's
+    first moment, 0.5 g) and the update (1e-7 where |mu| is above 3e-2 of
+    the largest, else 2 lr + 1e-7).
+
+    A float64 gradient of the same loss on the card is the reference both
+    f32 gradients are held to. The region predictor, the flow predictor
+    and the background predictor take their gradient through a softmax
+    (the region heatmaps over 32x32 positions at temperature 0.1, the flow
+    predictor's mask over the 11 motions, which weighs the background
+    motion), whose backward is a difference of nearly equal terms; f32
+    rounding leaves up to about 1.6e-2 of such a net's largest entry, most
+    at the heads next to the softmax. So: within 3e-2 of the net's largest
+    entry for those three nets, 3e-3 for the generator, card against CPU
+    and each against float64; and every leaf whose float64 gradient is not
+    zero (above 1e-6 of the net's largest: conv biases before train-mode
+    BatchNorm and the background encoder behind its zero-initialised fc
+    have none) within 0.15 of its own largest entry. The closed-form SVD's
+    gradient grows as the two singular values of a covariance meet, so the
+    phase asserts every covariance of the three region-predictor passes
+    keeps its smaller singular value below 0.95 of its larger."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.train.train_lfg import LFGTrainConfig, LFGTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LFGTrainConfig()
+    torch.manual_seed(SEED + 30)
+    cpu = LFGTrainer(cfg, device="cpu")
+    gpu = LFGTrainer(cfg, device="cuda")
+    gpu.flow_ae.load_state_dict(cpu.flow_ae.state_dict())
+    gpu.vgg.load_state_dict(cpu.vgg.state_dict())
+    r = np.random.RandomState(SEED + 31)
+    batch = {k: r.rand(2, 128, 128, 3).astype(np.float32) for k in ("source", "driving")}
+    draws = {"affine": r.randn(2, 2, 3).astype(np.float32),
+             "tps": r.randn(2, 1, 25).astype(np.float32)}
+    before = {n: p.detach().clone() for n, p in cpu.flow_ae.named_parameters()}
+    ref = LFGTrainer(cfg, device="cuda")          # the float64 gradient, no step
+    ref.flow_ae.load_state_dict(cpu.flow_ae.state_dict())
+    ref.vgg.load_state_dict(cpu.vgg.state_dict())
+    ref.flow_ae.double()
+    ref.vgg.double()
+    for m in ref.flow_ae.modules():               # the blocks' compute dtype
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    covars = []                                   # the three region-predictor passes
+    hook = ref.flow_ae.region_predictor.register_forward_hook(
+        lambda module, args, out: covars.append(out["covar"].detach()))
+    total64, _ = ref.loss_fn(*({k: torch.from_numpy(v).to("cuda", torch.float64)
+                                for k, v in d.items()} for d in (batch, draws)))
+    hook.remove()
+    total64.backward()
+    g64 = {n: p.grad.cpu() for n, p in ref.flow_ae.named_parameters()}
+    sv = [torch.linalg.svdvals(c) for c in covars]
+    ratios = [float((s[..., 1] / s[..., 0]).max()) for s in sv]
+    del ref, total64, covars
+    _reset_counts()
+    got = gpu.train_step(batch, draws)
+    launches = _counts()
+    want = cpu.train_step(batch, draws)
+    check(launches == (0,) * 7, f"lfg train launches (K1-K6, K1p) {launches}")
+    loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    stats_err = max((a.cpu().float() - c.float()).abs().max().item()
+                    / max(c.float().abs().max().item(), 1e-12)
+                    for (n, a), c in zip(gpu.flow_ae.state_dict().items(),
+                                         cpu.flow_ae.state_dict().values()) if "running" in n)
+    errs = {}
+    for net in ("generator", "region_predictor", "bg_predictor", "pixelwise_flow_predictor"):
+        pa, pc = (list(getattr(t.flow_ae, net).parameters()) for t in (gpu, cpu))
+        old = [before[f"{net}.{n}"] for n, _ in getattr(cpu.flow_ae, net).named_parameters()]
+        mu = [(gpu.optimizer.state[a]["mu"], cpu.optimizer.state[c]["mu"])
+              for a, c in zip(pa, pc)]
+        names = [n for n, _ in getattr(cpu.flow_ae, net).named_parameters()]
+        ref64 = [g64[f"{net}.{n}"] for n in names]
+        top = max(g.abs().max().item() for g in ref64)
+        f64_errs = []    # per device: (largest error over top, its leaf, over the leaf's own)
+        for i in (0, 1):
+            err = {n: (m[i].cpu().double() / 0.5 - g).abs().max().item()
+                   for n, m, g in zip(names, mu, ref64)}
+            own = {n: err[n] / g.abs().max().item()
+                   for n, g in zip(names, ref64) if g.abs().max().item() > 1e-6 * top}
+            worst, worst_own = max(err, key=err.get), max(own, key=own.get)
+            f64_errs.append((err[worst] / top, worst, own[worst_own], worst_own))
+        errs[net] = _update_errors(list(zip(pa, pc)), old, mu, cfg.lr, 3e-2) + tuple(f64_errs)
+    print(f"lfg train parity: LFGTrainer.train_step f32, configs/lfg_hdtf128.yaml widths, "
+          f"B=2 at 128^2, seeded VGG19, card vs CPU, TF32 off: total {got['total']:.6f} vs "
+          f"{want['total']:.6f}, perceptual {got['perceptual']:.6f} vs {want['perceptual']:.6f},"
+          f" equivariance shift {got['equivariance_shift']:.6f} vs "
+          f"{want['equivariance_shift']:.6f}, affine {got['equivariance_affine']:.6f} vs "
+          f"{want['equivariance_affine']:.6f}: max rel err {loss_err:.3e} (tol 1e-4); running "
+          f"statistics max err {stats_err:.3e} of a buffer's max (tol 1e-4); no kernel "
+          f"launched", flush=True)
+    print(f"lfg train parity: covariance singular-value ratio s1/s0, largest per "
+          f"region-predictor pass (source, driving, TPS-warped): "
+          f"{', '.join(f'{r:.4f}' for r in ratios)} (limit 0.95)", flush=True)
+    tols = {"generator": 3e-3}                    # the other three: 3e-2 (see above)
+    for net, (mu_err, upd_err, clear_err, card64, cpu64) in errs.items():
+        print(f"lfg train parity: {net}: gradient card vs CPU max err {mu_err:.3e} of its max, "
+              f"card f32 vs f64 {card64[0]:.3e} (worst leaf {card64[1]}), CPU f32 vs f64 "
+              f"{cpu64[0]:.3e} ({cpu64[1]}) (tol {tols.get(net, 3e-2):.0e} each); per leaf "
+              f"of its own max, card {card64[2]:.3e} ({card64[3]}), CPU {cpu64[2]:.3e} "
+              f"({cpu64[3]}) (tol 0.15); update max err {upd_err:.3e} (tol "
+              f"{2 * cfg.lr + 1e-7:.3g}), where |mu| > 3e-2 max {clear_err:.3e} (tol 1e-7)",
+              flush=True)
+    check(max(ratios) < 0.95, f"lfg train parity covariances near the SVD's degenerate "
+          f"point: ratios {ratios}")
+    check(loss_err <= 1e-4 and stats_err <= 1e-4, f"lfg train parity {loss_err} {stats_err}")
+    check(all(max(m, a[0], b[0]) <= tols.get(net, 3e-2) and max(a[2], b[2]) <= 0.15
+              and u <= 2 * cfg.lr + 1e-7 and c <= 1e-7
+              for net, (m, u, c, a, b) in errs.items()),
+          f"lfg train parity gradient or update errors {errs}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def lfg_train_path(card):
+    """Phase: warm LFGTrainer steps at configs/lfg_hdtf128.yaml's batch size
+    100, 128^2, f32 (cuDNN's TF32, PyTorch's default), resident batches;
+    returns the (K1, ..., K6, K1p) launches of its steps."""
+    import numpy as np
+    import torch
+    import yaml
+    from dawn_tpu_torch.train.train_lfg import LFGTrainConfig, LFGTrainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "lfg_hdtf128.yaml")) as f:
+        bs = yaml.safe_load(f)["train_params"]["batch_size"]
+    torch.manual_seed(SEED + 32)
+    trainer = LFGTrainer(LFGTrainConfig(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    batches = [{k: torch.rand(bs, 128, 128, 3, generator=gen, device="cuda")
+                for k in ("source", "driving")} for _ in range(2)]
+    stats0 = {n: b.clone() for n, b in trainer.flow_ae.named_buffers() if "running" in n}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    first = trainer.train_step(batches[0])
+    cold = time.perf_counter() - t0
+    times, metrics = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_step(batches[i % 2]))      # ends in a host read
+        times.append(time.perf_counter() - t0)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(not torch.equal(b, stats0[n]) for n, b in trainer.flow_ae.named_buffers()
+                if "running" in n)
+    check(all(np.isfinite(v) for m in [first] + metrics for v in m.values()),
+          "lfg train losses not finite")
+    check(moved == len(stats0), f"running statistics moved in {moved} of {len(stats0)} buffers")
+    check(launches == (0,) * 7, f"lfg train launches (K1-K6, K1p) {launches}")
+    warm = float(np.median(times))
+    print(f"lfg train path [{card}]: LFGTrainer.train_step, configs/lfg_hdtf128.yaml, bs {bs} "
+          f"at 128^2, f32 (cuDNN TF32), seeded VGG19, resident batches: cold {cold:.3f} s, warm "
+          f"{[round(1e3 * x, 1) for x in times]} ms, median {1e3 * warm:.1f} ms = "
+          f"{bs / warm:.1f} examples/s; totals {[round(m['total'], 4) for m in metrics]}; "
+          f"{moved}/{len(stats0)} running statistics moved; peak memory {peak_gb:.2f} GiB; "
+          f"no kernel launched", flush=True)
+    profile(lambda: trainer.train_step(batches[0]), card, "lfg train profile")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _pbnet_batch(rng, b, t, dim, lengths=None):
+    import numpy as np
+    x = (0.5 + 0.1 * rng.randn(b, t, dim)).astype(np.float32)
+    hubert = rng.randn(b, t, 1024).astype(np.float32)
+    batch = {"x": x, "hubert": hubert}
+    if lengths is not None:
+        for i, n in enumerate(lengths):
+            x[i, n:] = 0.0
+            hubert[i, n:] = 0.0
+        batch["lengths"] = np.asarray(lengths)
+    return batch
+
+
+def pbnet_train_parity():
+    """Phase: one PBnetTrainer step, reemb6 at the shipped width, dropout 0,
+    B=4 at T=40 with ragged lengths, the card against the CPU, f32, TF32
+    off, the same weights and z noise: the metrics (rtol 1e-4), Adam's first
+    moments of G and D (1e-3 of each one's largest) and the update (1e-7
+    where |mu| is above 1e-3 of the largest, else 2 lr + 1e-7)."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.models.pbnet.cvae import PBnetParams
+    from dawn_tpu_torch.train.train_pbnet import PBnetTrainConfig, PBnetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PBnetTrainConfig(kind="pose")
+    torch.manual_seed(SEED + 34)
+    cpu = PBnetTrainer(cfg, hp=PBnetParams(dropout=0.0), device="cpu")
+    gpu = PBnetTrainer(cfg, hp=PBnetParams(dropout=0.0), device="cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.disc.load_state_dict(cpu.disc.state_dict())
+    r = np.random.RandomState(SEED + 35)
+    batch = _pbnet_batch(r, 4, 40, 6, [40, 33, 27, 40])
+    draws = {"eps": r.randn(4, 40, 256).astype(np.float32)}
+    modules = [(gpu.model, cpu.model, 0), (gpu.disc, cpu.disc, 1)]
+    before = [[p.detach().clone() for p in c.parameters()] for _, c, _ in modules]
+    _reset_counts()
+    got = gpu.train_step(batch, 0, draws)
+    launches = _counts()
+    want = cpu.train_step(batch, 0, draws)
+    check(launches == (0,) * 7, f"pbnet train launches (K1-K6, K1p) {launches}")
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-6) for k in want)
+    errs = []
+    for (a, c, i), old in zip(modules, before):
+        pairs = list(zip(a.parameters(), c.parameters()))
+        mu = [(gpu.optimizers[i].state[pa]["mu"], cpu.optimizers[i].state[pc]["mu"])
+              for pa, pc in pairs]
+        errs.append(_update_errors(pairs, old, mu, cfg.lr, 1e-3))
+    print(f"pbnet train parity: PBnetTrainer.train_step, reemb6 shipped width (latent 256, 2 "
+          f"layers, ff 128, 4 heads), dropout 0, B=4 T=40 lengths [40, 33, 27, 40], card vs "
+          f"CPU, f32, TF32 off: g_total {got['g_total']:.6f} vs {want['g_total']:.6f}, d_loss "
+          f"{got['d_loss']:.6f} vs {want['d_loss']:.6f}, rc {got['rc']:.6f} vs {want['rc']:.6f}:"
+          f" max rel err {loss_err:.3e} (tol 1e-4); G: Adam mu err {errs[0][0]:.3e} of its max "
+          f"(tol 1e-3), update {errs[0][1]:.3e} (tol {2 * cfg.lr + 1e-7:.3g}), clear "
+          f"{errs[0][2]:.3e} (tol 1e-7); D: {errs[1][0]:.3e}, {errs[1][1]:.3e}, "
+          f"{errs[1][2]:.3e}; no kernel launched", flush=True)
+    check(loss_err <= 1e-4, f"pbnet train parity loss error {loss_err}")
+    check(all(m <= 1e-3 and u <= 2 * cfg.lr + 1e-7 and c <= 1e-7 for m, u, c in errs),
+          f"pbnet train parity gradient or update errors {errs}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def pbnet_train_path(card):
+    """Phase: PBnetTrainer steps for the pose and the blink model at the JAX
+    script's defaults (batch 32 x 100 frames, dropout 0.1, the shipped
+    width); returns the (K1, ..., K6, K1p) launches of its steps."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.train.train_pbnet import PBnetTrainConfig, PBnetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.RandomState(SEED + 36)
+    _reset_counts()
+    for kind, dim in (("pose", 6), ("blink", 2)):
+        torch.manual_seed(SEED + 37)
+        trainer = PBnetTrainer(PBnetTrainConfig(kind=kind), device="cuda")
+        batches = [_pbnet_batch(r, 32, 100, dim) for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = trainer.train_step(batches[0])
+        cold = time.perf_counter() - t0
+        times, metrics = [], []
+        for i in range(4):
+            t0 = time.perf_counter()
+            metrics.append(trainer.train_step(batches[i % 2], 0))
+            times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        check(trainer.model.training and all(np.isfinite(v) for m in [first] + metrics
+                                             for v in m.values()),
+              f"pbnet {kind} losses not finite")
+        warm = float(np.median(times))
+        print(f"pbnet train path [{card}]: {kind}, PBnetTrainer.train_step, batch 32 x 100 "
+              f"frames, dropout 0.1, f32: cold {1e3 * cold:.1f} ms, warm "
+              f"{[round(1e3 * x, 1) for x in times]} ms, median {1e3 * warm:.1f} ms = "
+              f"{32 / warm:.1f} sequences/s; g_total {[round(m['g_total'], 4) for m in metrics]}"
+              f"; peak memory {peak_gb:.2f} GiB", flush=True)
+        del trainer
+    launches = _counts()
+    check(launches == (0,) * 7, f"pbnet train launches (K1-K6, K1p) {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def trainer_clis(card):
+    """Phase: ``python -m dawn_tpu_torch.scripts.train_lfg`` (configs/lfg_hdtf128.yaml,
+    batch 8) and ``... train_pbnet --kind pose|blink`` (the script's defaults)
+    for 3 steps each on the card, on a synthetic HDTF tree; then the
+    inference loaders read their checkpoints strictly on the card:
+    ``FlowAE.load_reference_checkpoint`` and ``load_lfg_generator`` into a
+    FlowDiffusion, ``load_pbnet_with_opt`` for both PBnets, whose drives
+    must be finite. Returns the (K1, ..., K6, K1p) launches of the runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.pipeline.pose_blink import (DEFAULT_BLINK_2, DEFAULT_POSE_6,
+                                                    drives_separate, load_pbnet_with_opt)
+    from dawn_tpu_torch.scripts import train_lfg, train_pbnet
+    from dawn_tpu_torch.weights.checkpoints import load_lfg_generator
+
+    torch.backends.cudnn.allow_tf32 = True
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dawn_clis_")
+    flags = write_hdtf_tree(os.path.join(tmp, "data"),
+                            {f"vid_{i:03d}": 100 for i in range(4)}, 128, SEED + 38)
+    dirs = dict(f[2:].split("=", 1) for f in flags)
+    _reset_counts()
+    t0 = time.perf_counter()
+    lfg = train_lfg.main([f"--config={os.path.join(root, 'configs', 'lfg_hdtf128.yaml')}",
+                          f"--frames-dir={dirs['frames-dir']}", "--steps=3", "--batch-size=8",
+                          "--log-every=1", f"--workdir={os.path.join(tmp, 'lfg')}"])
+    lfg_secs = time.perf_counter() - t0
+    path = train_lfg.latest_checkpoint(os.path.join(tmp, "lfg", "ckpt"))
+    lines = [json.loads(x) for x in open(os.path.join(tmp, "lfg", "metrics.jsonl"))]
+    check(lfg.step == 3 and [x["step"] for x in lines] == [0, 1, 2]
+          and all(np.isfinite(x["total"]) for x in lines), "LFG CLI run")
+    flow_ae = FlowAE().to("cuda")
+    flow_ae.load_reference_checkpoint(path)
+    check(all(torch.equal(v, lfg.flow_ae.state_dict()[k])
+              for k, v in flow_ae.state_dict().items()), "LFG checkpoint round trip")
+    fd = FlowDiffusion(device="cuda")
+    skipped = load_lfg_generator(fd, path)
+    check(all(torch.equal(v, lfg.flow_ae.generator.state_dict()[k])
+              for k, v in fd.generator.state_dict().items())
+          and all(k.startswith("pixelwise_flow_predictor.") for k in skipped),
+          "LFG generator into FlowDiffusion")
+    del lfg, flow_ae, fd
+    t0 = time.perf_counter()
+    models = {}
+    for kind, dims in (("pose", (6, 0)), ("blink", (2, 0))):
+        work = os.path.join(tmp, "pbnet")
+        pb = train_pbnet.main([f"--kind={kind}", *[f"--{k}={dirs[k]}" for k in (
+            "hubert-dir", "pose-dir", "eye-dir", "length-dict")], "--steps=3", "--log-every=1",
+            f"--workdir={work}"])
+        ckpt = os.path.join(work, kind, "checkpoint_3.pth.tar")
+        models[kind] = load_pbnet_with_opt(ckpt, *dims, "cuda")
+        check(pb.step == 3 and all(torch.equal(v, pb.model.state_dict()[k])
+                                   for k, v in models[kind].state_dict().items()),
+              f"PBnet {kind} checkpoint round trip")
+    pb_secs = time.perf_counter() - t0
+    r = np.random.RandomState(SEED + 39)
+    pose, blink = drives_separate(models["pose"], models["blink"],
+                                  r.randn(100, 1024).astype(np.float32), DEFAULT_POSE_6,
+                                  DEFAULT_BLINK_2)
+    launches = _counts()
+    check(pose.shape == (100, 6) and blink.shape == (100, 2) and np.isfinite(pose).all()
+          and np.isfinite(blink).all(), "drives from the trained PBnets")
+    check(launches == (0,) * 7, f"trainer CLI launches (K1-K6, K1p) {launches}")
+    print(f"trainer clis [{card}]: train_lfg 3 steps (lfg_hdtf128, batch 8, 128^2) in "
+          f"{lfg_secs:.2f} s, totals {[round(x['total'], 4) for x in lines]}; "
+          f"LFG_0000003.pth read strictly by FlowAE.load_reference_checkpoint and "
+          f"load_lfg_generator (FlowDiffusion, {len(skipped)} flow-predictor entries skipped);"
+          f" train_pbnet pose + blink 3 steps each (batch 32 x 100) in {pb_secs:.2f} s, "
+          f"checkpoint_3.pth.tar + opt.yaml read by load_pbnet_with_opt, finite drives "
+          f"{pose.shape} {blink.shape}", flush=True)
+    load_pbnet_with_opt.cache_clear()
+    del models
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return launches
+
+
 def _tiled_inputs(gen, n, t, heads, w, dtype, bias=True, grad=False):
     """Random (N, H, T, 32) q (pre-scaled), k, v (and g) with a (H, 2w+1)
     f32 bias vector."""
@@ -2225,6 +2623,11 @@ def main():
     k2 = phase(kernel_k2, smi, rates)
     phase(train_parity)
     train = phase(train_path, smi)
+    phase(lfg_train_parity)
+    lfg_train = phase(lfg_train_path, smi)
+    phase(pbnet_train_parity)
+    pbnet_train = phase(pbnet_train_path, smi)
+    clis = phase(trainer_clis, smi)
     k3 = phase(kernel_k3, smi, rates)
     k4 = phase(kernel_k4, smi, rates)
     grad_t400 = phase(temporal_attention_grad, smi)
@@ -2251,7 +2654,8 @@ def main():
              "sample_T400": phase(video_path, smi, 400, timed=True),
              "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
-             "temporal_attention_grad_T400": grad_t400, "bench_attention": bench}
+             "temporal_attention_grad_T400": grad_t400, "bench_attention": bench,
+             "lfg_train": lfg_train, "pbnet_train": pbnet_train, "trainer_clis": clis}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,

@@ -2,8 +2,9 @@
 
 Port of ``dawn_tpu/models/lfg/bg_predictor.py`` (reference
 LFG/modules/bg_motion_predictor.py:15-58) for bg_type 'affine', the one the
-DAWN configs use, channels-last, eval-mode BatchNorm. Module names follow the
-reference ``state_dict`` (``encoder.down_blocks.{i}``, ``fc``).
+DAWN configs use, channels-last, BatchNorm in train mode when built with
+``train_bn``. Module names follow the reference ``state_dict``
+(``encoder.down_blocks.{i}``, ``fc``).
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ from dawn_tpu_torch.models.lfg.blocks import HourglassEncoder
 
 class BGMotionPredictor(nn.Module):
     def __init__(self, block_expansion: int = 32, num_channels: int = 3,
-                 max_features: int = 1024, num_blocks: int = 5, bg_type: str = "affine"):
+                 max_features: int = 1024, num_blocks: int = 5, bg_type: str = "affine",
+                 train_bn: bool = False):
         super().__init__()
         if bg_type != "affine":
             raise NotImplementedError(f"bg_type {bg_type!r} is not ported (only 'affine')")
         self.encoder = HourglassEncoder(block_expansion, num_channels * 2, num_blocks,
-                                        max_features)
+                                        max_features, train_bn=train_bn)
         self.fc = nn.Linear(min(max_features, block_expansion * 2 ** num_blocks), 6)
         with torch.no_grad():          # the reference starts at the identity
             self.fc.weight.zero_()

@@ -5,8 +5,11 @@ and pixelwise-flow predictors under the JAX variables' names
 (``generator``, ``region_predictor``, ``bg_predictor``,
 ``pixelwise_flow_predictor``), and ``teacher_outputs``, the deduplicated
 teacher pass of the training loss. Defaults are the 128^2 LFG widths of
-``configs/lfg_hdtf128.yaml``. ``reconstruct_video`` and ``motion_transfer``
-(the training snapshot's decode) are not ported yet.
+``configs/lfg_hdtf128.yaml``. BatchNorm runs in train mode only in the nets
+whose keyword dict holds ``train_bn=True`` (the LFG trainer's); the teacher
+and the pipeline build theirs without it, whatever ``.train()`` says.
+``reconstruct_video`` and ``motion_transfer`` (the DM training snapshot's
+decode) are not ported yet; the LFG trainer composes the nets itself.
 """
 
 from __future__ import annotations

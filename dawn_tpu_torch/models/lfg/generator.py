@@ -1,11 +1,13 @@
-"""LFG flow-warping generator (Johnson architecture), inference side.
+"""LFG flow-warping generator (Johnson architecture).
 
-Port of ``dawn_tpu/models/lfg/generator.py:61-165``: ``encode`` gives the skip
+Port of ``dawn_tpu/models/lfg/generator.py:61-185``: ``encode`` gives the skip
 pyramid of a source image, ``compute_fea`` its bottleneck feature (the
 diffusion's image condition), and ``decode_with_flow_batched`` decodes
 (B, T) flow and occlusion videos against the B sources, each encoded once,
-all frames in one batch, every warp gathering the shared source. Module names
-follow the reference generator's ``state_dict``.
+all frames in one batch, every warp gathering the shared source. Calling the
+module is the training path's motion transfer: one flow per source. Module
+names follow the reference generator's ``state_dict``; BatchNorm runs in
+train mode when built with ``train_bn``.
 """
 
 from __future__ import annotations
@@ -24,24 +26,24 @@ from dawn_tpu_torch.models.lfg.warp import apply_optical_shared, deform_input_sh
 class LFGGenerator(nn.Module):
     def __init__(self, num_channels: int = 3, block_expansion: int = 64,
                  max_features: int = 512, num_down_blocks: int = 2,
-                 num_bottleneck_blocks: int = 6, dtype=torch.float32):
+                 num_bottleneck_blocks: int = 6, dtype=torch.float32, train_bn: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.first = SameBlock2d(num_channels, block_expansion, dtype)
+        self.first = SameBlock2d(num_channels, block_expansion, dtype, train_bn=train_bn)
         down, up = [], []
         for i in range(num_down_blocks):
             fin = min(max_features, block_expansion * 2 ** i)
             fout = min(max_features, block_expansion * 2 ** (i + 1))
-            down.append(DownBlock2d(fin, fout, dtype))
+            down.append(DownBlock2d(fin, fout, dtype, train_bn))
         for i in range(num_down_blocks):
             fin = min(max_features, block_expansion * 2 ** (num_down_blocks - i))
             fout = min(max_features, block_expansion * 2 ** (num_down_blocks - i - 1))
-            up.append(UpBlock2d(fin, fout, dtype))
+            up.append(UpBlock2d(fin, fout, dtype, train_bn))
         self.down_blocks = nn.ModuleList(down)
         self.up_blocks = nn.ModuleList(up)
         bottleneck_features = min(max_features, block_expansion * 2 ** num_down_blocks)
         self.bottleneck = nn.Sequential(OrderedDict(
-            (f"r{i}", ResBlock2d(bottleneck_features, dtype))
+            (f"r{i}", ResBlock2d(bottleneck_features, dtype, train_bn))
             for i in range(num_bottleneck_blocks)))
         self.final = nn.Conv2d(block_expansion, num_channels, 7, padding=3)
 
@@ -84,3 +86,17 @@ class LFGGenerator(nn.Module):
         """source_image (B, H, W, 3); flow (B, T, h, w, 2); occlusion (B, T, h, w, 1)."""
         return self.decode_shared(source_image, self.encode(source_image),
                                   optical_flow, occlusion_map)
+
+    def forward(self, source_image: torch.Tensor, motion_params: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Motion transfer of (N, H, W, 3) sources by their own flows:
+        ``motion_params`` holds 'optical_flow' (N, h, w, 2) and
+        'occlusion_map' (N, h, w, 1) from the pixelwise flow predictor.
+        Returns 'prediction' and 'deformed' (N, H, W, 3), 'bottle_neck_feat'
+        and the two motion tensors."""
+        skips = self.encode(source_image)
+        flow, occ = motion_params["optical_flow"], motion_params["occlusion_map"]
+        out = {k: v[:, 0] for k, v in self.decode_shared(source_image, skips, flow[:, None],
+                                                          occ[:, None]).items()}
+        return {**out, "bottle_neck_feat": skips[-1], "optical_flow": flow,
+                "occlusion_map": occ}

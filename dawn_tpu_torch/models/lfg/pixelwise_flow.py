@@ -1,11 +1,11 @@
 """Pixelwise flow predictor: sparse region motions -> dense flow + occlusion.
 
 Port of ``dawn_tpu/models/lfg/pixelwise_flow.py`` (reference
-LFG/modules/pixelwise_flow_predictor.py:17-138), channels-last, eval-mode
-BatchNorm. All region warps of the source go through one batched
-``grid_sample`` over the (num_regions + 1) hypotheses. Module names follow
-the reference ``state_dict`` (``hourglass.encoder.down_blocks.{i}``,
-``mask``, ``occlusion``).
+LFG/modules/pixelwise_flow_predictor.py:17-138), channels-last, BatchNorm
+in train mode when built with ``train_bn``. All region warps of the source
+go through one batched ``grid_sample`` over the (num_regions + 1)
+hypotheses. Module names follow the reference ``state_dict``
+(``hourglass.encoder.down_blocks.{i}``, ``mask``, ``occlusion``).
 """
 
 from __future__ import annotations
@@ -28,12 +28,13 @@ class PixelwiseFlowPredictor(nn.Module):
 
     def __init__(self, block_expansion: int = 64, num_blocks: int = 5,
                  max_features: int = 1024, num_regions: int = 10, num_channels: int = 3,
-                 scale_factor: float = 0.25, revert_axis_swap: bool = True):
+                 scale_factor: float = 0.25, revert_axis_swap: bool = True,
+                 train_bn: bool = False):
         super().__init__()
         self.scale_factor, self.revert_axis_swap = scale_factor, revert_axis_swap
         r1 = num_regions + 1
         self.hourglass = Hourglass(block_expansion, r1 * (num_channels + 1), num_blocks,
-                                   max_features)
+                                   max_features, train_bn=train_bn)
         self.mask = nn.Conv2d(self.hourglass.out_filters, r1, 7, padding=3)
         self.occlusion = nn.Conv2d(self.hourglass.out_filters, 1, 7, padding=3)
 
@@ -90,6 +91,7 @@ class PixelwiseFlowPredictor(nn.Module):
         inp = torch.cat([heatmap[..., None], deformed], dim=-1)        # (n, r+1, h, w, 1+c)
         inp = inp.permute(0, 2, 3, 1, 4).reshape(n, h, w, -1)
         prediction = self.hourglass(inp)
-        mask = torch.softmax(conv(prediction, self.mask, torch.float32), dim=-1)
+        head = torch.promote_types(prediction.dtype, torch.float32)
+        mask = torch.softmax(conv(prediction, self.mask, head), dim=-1)
         return {"optical_flow": torch.einsum("nrhwc,nhwr->nhwc", sparse_motion, mask),
-                "occlusion_map": torch.sigmoid(conv(prediction, self.occlusion, torch.float32))}
+                "occlusion_map": torch.sigmoid(conv(prediction, self.occlusion, head))}

@@ -1,9 +1,9 @@
 """Region predictor: 10 region heatmaps -> shift and PCA affine.
 
 Port of ``dawn_tpu/models/lfg/region_predictor.py`` (reference
-LFG/modules/region_predictor.py:28-118), channels-last, eval-mode BatchNorm.
-Module names follow the reference ``state_dict`` (``predictor.encoder.
-down_blocks.{i}``, ``regions``).
+LFG/modules/region_predictor.py:28-118), channels-last, BatchNorm in train
+mode when built with ``train_bn``. Module names follow the reference
+``state_dict`` (``predictor.encoder.down_blocks.{i}``, ``regions``).
 
 The affine of each region is u diag(sqrt(s)) from the SVD of its 2x2
 covariance. The SVD's column signs reach the flow through
@@ -133,10 +133,12 @@ class RegionPredictor(nn.Module):
 
     def __init__(self, block_expansion: int = 32, num_regions: int = 10,
                  num_channels: int = 3, max_features: int = 1024, num_blocks: int = 5,
-                 temperature: float = 0.1, scale_factor: float = 0.25, pad: int = 3):
+                 temperature: float = 0.1, scale_factor: float = 0.25, pad: int = 3,
+                 train_bn: bool = False):
         super().__init__()
         self.temperature, self.scale_factor = temperature, scale_factor
-        self.predictor = Hourglass(block_expansion, num_channels, num_blocks, max_features)
+        self.predictor = Hourglass(block_expansion, num_channels, num_blocks, max_features,
+                                   train_bn=train_bn)
         self.regions = nn.Conv2d(self.predictor.out_filters, num_regions, 7, padding=pad)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -145,7 +147,8 @@ class RegionPredictor(nn.Module):
         if self.scale_factor != 1:
             x = anti_alias_downsample(x, self.scale_factor)
         feature_map = self.predictor(x)
-        prediction = conv(feature_map, self.regions, torch.float32)
+        prediction = conv(feature_map, self.regions,
+                          torch.promote_types(feature_map.dtype, torch.float32))
         n, h, w, r = prediction.shape
         heat = F.softmax(prediction.reshape(n, h * w, r) / self.temperature,
                          dim=1).reshape(n, h, w, r)

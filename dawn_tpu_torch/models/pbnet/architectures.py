@@ -11,8 +11,11 @@ Port of ``dawn_tpu/models/pbnet/architectures.py:33-166``
   decoder5 stack (hard eval window added as a mask) and gives the pose
   change, padded frames zeroed.
 
+Both take ``drop`` (a ``layers.Dropout``, at the JAX modules' places) for
+the training forward; the decoder takes ``eval_mask``: the hard window is
+an eval-time mask, and the JAX package's training forward leaves it out.
 The GRU, FC and ablation architectures are not ported (ROADMAP queue 1
-item 15). Inference only: no dropout.
+item 15).
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from dawn_tpu_torch.models.pbnet.layers import (PBnetDecoderLayer, RotaryBiasAttention,
-                                                TorchTransformerEncoderLayer,
+from dawn_tpu_torch.models.pbnet.layers import (Dropout, PBnetDecoderLayer,
+                                                RotaryBiasAttention,
+                                                TorchTransformerEncoderLayer, maybe_drop,
                                                 sinusoidal_table)
 from dawn_tpu_torch.ops.norms import channel_layer_norm
 from dawn_tpu_torch.ops.t5bias import t5_bias_matrix, window_mask
@@ -40,11 +44,11 @@ class PBnetRelPosBias(nn.Module):
         self.eval_window = eval_window
         self.relative_attention_bias = nn.Embedding(num_buckets, heads)
 
-    def forward(self, n: int) -> torch.Tensor:
+    def forward(self, n: int, use_eval_mask: bool = True) -> torch.Tensor:
         """(heads, n, n) bias."""
         bias = t5_bias_matrix(self.relative_attention_bias.weight, n, self.num_buckets,
                               self.max_distance)
-        if self.eval_window is not None:
+        if use_eval_mask and self.eval_window is not None:
             bias = bias + window_mask(n, self.eval_window).to(bias.device)
         return bias
 
@@ -71,8 +75,8 @@ class EncoderTransformerReemb6(nn.Module):
         self.mu_layer = nn.Linear(self.latent, audio_latent_dim)
         self.sigma_layer = nn.Linear(self.latent, audio_latent_dim)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                drop: Optional[Dropout] = None) -> Dict[str, torch.Tensor]:
         """x: (B, T, pos_dim) absolute pose; y: (B, T, audio_dim); mask (B, T),
         True where valid. Returns mu, logvar (B, T, audio_latent) and x_delta."""
         b, t, _ = x.shape
@@ -80,10 +84,10 @@ class EncoderTransformerReemb6(nn.Module):
         dx = x - x_ref
         ref_emb = self.firstposeEmbedding(x_ref).expand(b, t, -1)
         h = torch.cat([ref_emb, self.poseEmbedding(dx), self.audioEmbedding(y)], dim=-1)
-        h = h + sinusoidal_table(t, self.latent).to(h.device)[None]
+        h = maybe_drop(drop, h + sinusoidal_table(t, self.latent).to(h.device)[None])
         kpm = None if mask is None else ~mask.bool()
         for layer in self.seqTransEncoder.layers:
-            h = layer(h, kpm)
+            h = layer(h, kpm, drop)
         return {"mu": self.mu_layer(h), "logvar": self.sigma_layer(h), "x_delta": dx}
 
 
@@ -138,19 +142,20 @@ class DecoderTransformerReemb6(nn.Module):
         self.finallayer = nn.Linear(d, pos_dim)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, y: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, drop: Optional[Dropout] = None,
+                eval_mask: bool = True) -> torch.Tensor:
         """x: (B, T, pos_dim), only frame 0 used; z: (B, T, audio_latent);
         y: (B, T, audio_dim); mask (B, T), True where valid. Returns the pose
         change (B, T, pos_dim)."""
         b, t, _ = y.shape
         ref_emb = self.firstposeEmbedding(x[:, :1].expand(b, t, -1))
         mem = self.ztimelinear(torch.cat([ref_emb, z, self.audioEmbedding(y)], dim=-1))
-        bias_tgt = self.time_rel_pos_bias_tgt(t)[None]
-        bias_mem = self.time_rel_pos_bias_mem(t)[None]
+        bias_tgt = self.time_rel_pos_bias_tgt(t, eval_mask)[None]
+        bias_mem = self.time_rel_pos_bias_mem(t, eval_mask)[None]
         q = self.init_proj(mem.new_zeros(b, t, self.pose_latent_dim))    # time queries
         q = self.init_temporal_attn(q, bias_tgt)
         for layer in self.seqTransDecoder.decoder_layers:
-            q = layer(q, mem, bias_tgt, bias_mem)
+            q = layer(q, mem, bias_tgt, bias_mem, drop)
         out = self.finallayer(q)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)

@@ -1,27 +1,37 @@
-"""PBnet CVAE: the generation API and the architecture factory.
+"""PBnet CVAE: the training forward and loss, the generation API and the
+architecture factory.
 
-Port of ``dawn_tpu/models/pbnet/cvae.py:60-235, 287-307``, inference side:
-``encode``, ``decode`` and ``generate`` (per-frame z ~ N(0, 1), decoded into
-pose or blink drives from audio; cae.py:112-166 of the reference) and the
-modelname / opt.yaml driven factory. ``CVAE`` is an ``nn.Module`` whose
+Port of ``dawn_tpu/models/pbnet/cvae.py:60-307``: ``forward`` (encode,
+reparameterise, decode; cvae.py:20-38 of the reference) and
+``compute_loss`` (the weighted losses with the KL annealing of
+cae.py:66-85), ``encode``, ``decode`` and ``generate`` (per-frame z ~
+N(0, 1), decoded into pose or blink drives from audio; cae.py:112-166) and
+the modelname / opt.yaml driven factory. ``CVAE`` is an ``nn.Module`` whose
 state_dict is the reference checkpoint's (``encoder.*``, ``decoder.*``).
 
+The module puts itself in eval mode when it is built. Only ``forward``
+reads the mode: in training mode it applies dropout (drawn from the
+caller's generator) and leaves the decoder's eval window out, as the JAX
+package's non-deterministic CVAE does. ``encode``, ``decode`` and
+``generate`` run without dropout and with the window whatever the mode.
+
 Only the deployed reemb family is ported (the rows of ``_ARCH_TABLE``); the
-other registered architectures raise (ROADMAP queue 1 item 15), and
-``compute_loss`` waits for the PBnet trainer (item 14).
+other registered architectures raise (ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from dawn_tpu_torch import resolve_device
+from dawn_tpu_torch.models.pbnet import losses as L
 from dawn_tpu_torch.models.pbnet.architectures import (DecoderTransformerReemb6,
                                                        EncoderTransformerReemb6)
+from dawn_tpu_torch.models.pbnet.layers import Dropout
 
 # the reference registry (get_model.py:16) plus 'mlp', as the JAX package has it
 ARCHINAMES = ("fc", "gru", "mlp", "transformer", "transformerreemb5",
@@ -55,11 +65,19 @@ def parse_modelname(modelname: str):
     return modeltype, archiname, losses
 
 
+def kl_anneal(epoch: float) -> float:
+    """The KL weight of cae.py:72-76, oddities included: 1 at epoch 0, 0 for
+    epochs 1 to 9,999, then max(epoch - 1e4, 7e4) / 7e4 (1 up to epoch
+    80,000, growing past it)."""
+    if epoch == 0:
+        return 1.0
+    return 0.0 if epoch < 1e4 else max(epoch - 1e4, 7e4) / 7e4
+
+
 @dataclasses.dataclass
 class PBnetParams:
-    """The hyperparameters inference reads from a PBnet opt.yaml dict
-    (dropout, the loss weights and the mlp arch's fixed length wait for the
-    trainer)."""
+    """The hyperparameters of a PBnet opt.yaml dict (the mlp arch's fixed
+    length is not ported)."""
     pos_dim: int = 6
     eye_dim: int = 0
     audio_dim: int = 1024
@@ -70,7 +88,10 @@ class PBnetParams:
     num_heads: int = 4
     num_buckets: int = 128
     max_distance: int = 128
+    dropout: float = 0.1
     archiname: str = "transformerreemb6"
+    lambdas: Mapping[str, float] = dataclasses.field(
+        default_factory=lambda: {"rc": 1.0, "kl": 1.0, "reg": 0.1})
 
     @classmethod
     def from_opt(cls, opt: Mapping[str, Any]) -> "PBnetParams":
@@ -89,7 +110,9 @@ class PBnetParams:
             num_heads=int(g("num_heads", 4)),
             num_buckets=int(g("num_buckets", 128)),
             max_distance=int(g("max_distance", 128)),
+            dropout=float(g("dropout", 0.1)),
             archiname=g("archiname", "transformerreemb6"),
+            lambdas=dict(g("lambdas", {"rc": 1.0, "kl": 1.0, "reg": 0.1})),
         )
 
     @property
@@ -127,6 +150,65 @@ class CVAE(nn.Module):
 
     def _to(self, *xs):
         return [None if x is None else x.to(self.device) for x in xs]
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, slice]] = None) -> Dict[str, torch.Tensor]:
+        """The training forward (cvae.py:20-38): encode, z = mu + exp(logvar /
+        2) * eps, decode. x (B, T, D) absolute pose or blink; y (B, T, 1024);
+        mask (B, T), True where valid. ``eps`` (B, T, latent) is drawn from
+        ``generator`` unless given, and so is the dropout of training mode.
+        ``shard`` = (n, rows): x holds the rows ``rows`` of a batch of n, and
+        eps and the dropout masks are drawn for the whole batch and sliced
+        (a data-parallel step). Returns 'output' (padded frames zeroed), 'z',
+        'mu', 'logvar', 'x_delta'."""
+        x, y, mask = self._to(x.float(), y.float(), mask)
+        train = self.training
+        drop = (Dropout(self.hp.dropout, generator, shard)
+                if train and self.hp.dropout > 0 else None)
+        enc = self.encoder(x, y, mask, drop)
+        if eps is None:
+            n, rows = shard or (x.shape[0], slice(None))
+            eps = torch.randn((n, *enc["mu"].shape[1:]), generator=generator,
+                              device=self.device)[rows]
+        z = enc["mu"] + torch.exp(0.5 * enc["logvar"]) * eps.to(self.device)
+        out = self.decoder(x, z, y, mask, drop, eval_mask=not train)
+        return {"output": out, "z": z, **enc}
+
+    def compute_loss(self, batch_out: Dict[str, torch.Tensor], x_delta: torch.Tensor,
+                     mask: Optional[torch.Tensor], epoch: float = 0,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Dict[str, torch.Tensor]] = None, encode_fn=None,
+                     total=L.no_reduce):
+        """The mixed loss sum_k lambda_k loss_k over ``hp.lambdas`` and the
+        terms (cae.py:66-85), every loss of the reference's registry, the KL
+        annealed by :func:`kl_anneal`. 'mmd' takes its N(0, 1) samples and
+        'hp' its directions from ``draws`` ('mmd', 'hp'), else from
+        ``generator``; 'hp' needs ``encode_fn`` (x -> latent, the
+        reference's model.return_latent). ``total`` sums a count over the
+        ranks of a data-parallel step (see :mod:`.losses`); 'ssim', 'var',
+        'mmd' and 'hp' take the local batch only."""
+        hp = self.hp
+        draws = draws or {}
+        out = batch_out["output"]
+        m = (torch.ones(out.shape[:2], dtype=out.dtype, device=out.device) if mask is None
+             else mask.to(out.dtype))
+        losses = {}
+        for name in hp.lambdas:
+            if name == "kl":
+                losses["kl"] = kl_anneal(epoch) * L.kl_loss(batch_out["mu"],
+                                                            batch_out["logvar"], m, total)
+            elif name == "mmd":
+                losses["mmd"] = L.mmd_loss(batch_out["z"], draws.get("mmd"), generator)
+            elif name == "hp":
+                losses["hp"] = L.hessian_penalty(encode_fn, x_delta, dzs=draws.get("hp"),
+                                                 generator=generator)
+            else:
+                losses[name] = L.get_loss_function(name)(out, x_delta, m, total=total)
+        mixed = sum(hp.lambdas[k] * v for k, v in losses.items())
+        losses["mixed"] = mixed
+        return mixed, losses
 
     @torch.no_grad()
     def encode(self, x, y, mask=None) -> Dict[str, torch.Tensor]:

@@ -6,11 +6,16 @@ decoder layer, and torch's ``nn.TransformerEncoderLayer`` (post-norm, GELU)
 written out so that it computes exactly what the JAX layer computes (no fast
 path). Module names follow the reference state_dict: ``to_qkv``, ``to_out``,
 ``ffn.linear1``, ``self_attn.in_proj_weight``.
+
+The layers take ``drop``, a :class:`Dropout` or None: the training
+forward's dropout at the JAX layers' places (the encoder layer's attention
+probabilities, each sublayer's output before its residual add, and the
+feed-forward's hidden activation). None (inference) leaves them out.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +24,28 @@ from torch import nn
 
 from dawn_tpu_torch.ops.attention import attend
 from dawn_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
+
+
+class Dropout:
+    """Dropout at rate ``p`` drawn from an explicit generator, as flax's
+    ``nn.Dropout``: an entry is kept where a uniform draw is below 1 - p
+    and scaled by 1 / (1 - p), else zeroed. With ``shard`` = (n, rows),
+    ``x`` holds the rows ``rows`` of a batch of n (its first axis): the
+    draws are made for the whole batch and this shard's rows kept, so
+    every rank of a data-parallel step applies the whole batch's masks."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None,
+                 shard: Optional[Tuple[int, slice]] = None):
+        self.p, self.generator, self.shard = p, generator, shard
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        n, rows = self.shard or (x.shape[0], slice(None))
+        u = torch.rand((n, *x.shape[1:]), generator=self.generator, device=x.device)[rows]
+        return torch.where(u < 1.0 - self.p, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def maybe_drop(drop: Optional[Dropout], x: torch.Tensor) -> torch.Tensor:
+    return x if drop is None else drop(x)
 
 
 def _rotate(z: torch.Tensor, heads: int) -> torch.Tensor:
@@ -80,13 +107,13 @@ class FeedForward(nn.Module):
         self.linear1 = nn.Linear(dim, ff_size)
         self.linear2 = nn.Linear(ff_size, dim)
 
-    def forward(self, x):
-        return self.linear2(F.gelu(self.linear1(x)))
+    def forward(self, x, drop: Optional[Dropout] = None):
+        return self.linear2(maybe_drop(drop, F.gelu(self.linear1(x))))
 
 
 class PBnetDecoderLayer(nn.Module):
     """Post-norm decoder layer: self-attention, cross-attention to the
-    memory, GELU feed-forward (inference: no dropout)."""
+    memory, GELU feed-forward."""
 
     def __init__(self, dim: int, heads: int, ff_size: int):
         super().__init__()
@@ -97,10 +124,12 @@ class PBnetDecoderLayer(nn.Module):
         self.ffn = FeedForward(dim, ff_size)
         self.layer_norm3 = nn.LayerNorm(dim)
 
-    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
-        tgt = self.layer_norm1(tgt + self.self_attn(tgt, tgt_mask))
-        tgt = self.layer_norm2(tgt + self.multihead_attn(tgt, memory, memory, memory_mask))
-        return self.layer_norm3(tgt + self.ffn(tgt))
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                drop: Optional[Dropout] = None):
+        tgt = self.layer_norm1(tgt + maybe_drop(drop, self.self_attn(tgt, tgt_mask)))
+        ca = self.multihead_attn(tgt, memory, memory, memory_mask)
+        tgt = self.layer_norm2(tgt + maybe_drop(drop, ca))
+        return self.layer_norm3(tgt + maybe_drop(drop, self.ffn(tgt, drop)))
 
 
 class PackedSelfAttention(nn.Module):
@@ -116,7 +145,8 @@ class PackedSelfAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                drop: Optional[Dropout] = None):
         b, n, c = x.shape
         dh = c // self.heads
         q, k, v = (z.reshape(b, n, self.heads, dh).transpose(1, 2)
@@ -125,13 +155,13 @@ class PackedSelfAttention(nn.Module):
         if key_padding_mask is not None:
             bias = torch.zeros(key_padding_mask.shape, dtype=q.dtype, device=q.device)
             bias = bias.masked_fill(key_padding_mask, float("-inf"))[:, None, None, :]
-        out = attend(q, k, v, bias, scale=dh ** -0.5)
+        out = attend(q, k, v, bias, scale=dh ** -0.5, drop=drop)
         return self.out_proj(out.transpose(1, 2).reshape(b, n, c))
 
 
 class TorchTransformerEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer`` (post-norm, GELU) in the (B, N, C)
-    layout, inference only."""
+    layout."""
 
     def __init__(self, dim: int, heads: int, ff_size: int):
         super().__init__()
@@ -141,10 +171,11 @@ class TorchTransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, drop: Optional[Dropout] = None):
         """key_padding_mask: (B, N), True where masked."""
-        x = self.norm1(x + self.self_attn(x, key_padding_mask))
-        return self.norm2(x + self.linear2(F.gelu(self.linear1(x))))
+        x = self.norm1(x + maybe_drop(drop, self.self_attn(x, key_padding_mask, drop)))
+        h = self.linear2(maybe_drop(drop, F.gelu(self.linear1(x))))
+        return self.norm2(x + maybe_drop(drop, h))
 
 
 def sinusoidal_table(max_len: int, d_model: int) -> torch.Tensor:

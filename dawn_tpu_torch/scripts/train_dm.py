@@ -24,12 +24,13 @@ The flags are those of ``scripts/train_dm.py``: the yaml config (batch size,
 frames, lr, schedule length, loss weights, window; optional ``unet:`` and
 ``lfg:`` topology overrides and ``compute_dtype: bfloat16``), stage-2 clip
 lengths drawn per step and snapped to the config's length buckets,
-``<workdir>/metrics.jsonl`` logging every ``--log-every`` steps, and
+``<workdir>/metrics.jsonl`` logging every ``--log-every`` steps (with
+``--tensorboard`` also TensorBoard event files under ``<workdir>/tb``), and
 checkpoints ``<workdir>/ckpt/step_<step>.pt`` (UNet, optimizer, schedule,
 EMA, step; ``torch.save``) every ``--ckpt-every`` steps and at the end,
 resumed from the newest with ``--restore``. ``--device cpu`` runs on the CPU;
-the card is the default. ``--teacher-cache``, ``--prefetch``,
-``--tensorboard`` and ``--sample-every`` are not ported yet and raise.
+the card is the default. ``--teacher-cache``, ``--prefetch`` and
+``--sample-every`` are not ported yet and raise.
 """
 
 import argparse
@@ -43,7 +44,6 @@ _NOT_PORTED = {
     "teacher_cache": "--teacher-cache (TeacherCache, ROADMAP queue 1 item 12)",
     "prefetch": "--prefetch (the C++ chunk reader and batches_prefetched, "
                 "ROADMAP queue 1 item 12)",
-    "tensorboard": "--tensorboard (ROADMAP queue 1 item 12)",
     "sample_every": "--sample-every (DMTrainer.snapshot and its LFG decode, "
                     "ROADMAP queue 1 item 12)",
 }
@@ -70,7 +70,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=500)
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the card)")
     ap.add_argument("--sample-every", type=int, default=0, help="not ported yet")
-    ap.add_argument("--tensorboard", action="store_true", help="not ported yet")
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="also write TensorBoard event files to <workdir>/tb")
     ap.add_argument("--teacher-cache", default=None, metavar="DIR", help="not ported yet")
     ap.add_argument("--teacher-cache-stride", type=int, default=None, help="not ported yet")
     ap.add_argument("--teacher-cache-f16", action="store_true", help="not ported yet")
@@ -117,6 +118,7 @@ def main(argv: Optional[List[str]] = None):
     from dawn_tpu_torch.parallel.mesh import make_mesh
     from dawn_tpu_torch.train.data import HDTFVideoDataset
     from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+    from dawn_tpu_torch.utils.tensorboard import EventWriter
 
     maybe_initialize_distributed(device=args.device)
     n = process_count()
@@ -193,6 +195,7 @@ def main(argv: Optional[List[str]] = None):
     bs = cfg_yaml["batch_size"]
     rng_len = np.random.RandomState(seed)
     t0 = time.time()
+    tb = EventWriter(os.path.join(args.workdir, "tb")) if args.tensorboard and lead else None
     with open(os.path.join(args.workdir, "metrics.jsonl") if lead else os.devnull,
               "a") as metrics_log:
         for step, batch in enumerate(dataset.batches(bs, total - start), start):
@@ -210,11 +213,16 @@ def main(argv: Optional[List[str]] = None):
                                frames=int(batch["video"].shape[1]))
                 metrics_log.write(json.dumps(metrics) + "\n")
                 metrics_log.flush()
+                if tb is not None:
+                    tb.add_scalars(metrics, step, prefix="train/")
+                    tb.flush()
                 print(f"step {step}: " + " ".join(f"{k} {metrics[k]:.4f}" for k in
                                                   ("total", "loss", "floss", "mouth_loss")))
             if step > start and step % args.ckpt_every == 0:
                 save(step)
             t0 = time.time()
+    if tb is not None:
+        tb.close()
     save(total)
     return trainer
 

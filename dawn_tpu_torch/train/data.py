@@ -1,20 +1,31 @@
-"""The DM training dataset: chunked-npy HDTF clips, read with numpy.
+"""The training datasets: chunked-npy HDTF clips, read with numpy.
 
-Port of ``dawn_tpu/train/data.py:23-224`` on its ``np.load`` path: one
-subdirectory per video and modality (frames, hubert, pose, eye, optional
-lmk) full of 25-frame ``chunk_%04d.npy`` blocks, and ``length_dict.pkl``
-mapping each video to its frame count; the reference's held-out test split
-and bad videos are left out of training. Clips and batches are drawn from a
-``np.random.RandomState(seed)``, the same stream as the JAX package's class,
-so one seed gives the same batches in both. The threaded C++ chunk reader,
-the prefetching batch iterator and the teacher cache are not ported yet.
+Port of ``dawn_tpu/train/data.py:23-224, 339-399, 542-569`` on its
+``np.load`` path: one subdirectory per video and modality (frames, hubert,
+pose, eye, optional lmk) full of 25-frame ``chunk_%04d.npy`` blocks, and
+``length_dict.pkl`` mapping each video to its frame count; the reference's
+held-out test split and bad videos are left out of training.
+
+- :class:`HDTFVideoDataset`: the DM's clips;
+- :class:`PBnetPoseDataset`: the PBnet's (hubert, normalised pose, eye)
+  sequences, held in memory; :func:`collate_padded` and
+  :func:`lengths_to_mask` for ragged batches;
+- :func:`frame_pair_batches`: the LFG's (source, driving) frame pairs of
+  ``scripts/train_lfg.py:20-50``, augmented by
+  :func:`dawn_tpu_torch.train.augment.augment_frame_pair`.
+
+Clips, pairs and batches are drawn from a ``np.random.RandomState``, the
+same stream as the JAX package's, so one seed gives the same batches in
+both. The threaded C++ chunk reader, the prefetching batch iterator and the
+teacher cache are not ported yet.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -119,3 +130,127 @@ class HDTFVideoDataset:
             yield {k: np.stack([s[k] if k == "bbox" else _pad_frames(s[k], self.num_frames)
                                 for s in samples])
                    for k in samples[0]}
+
+
+# ------------------------------------------------------------------- PBnet
+
+# PBnet pose normalization constants (datasets_..._eye_fast.py:62-65)
+PBNET_POSE_MAX = np.array([90, 90, 90, 1, 720, 1080], np.float32)
+PBNET_POSE_MIN = np.array([-90, -90, -90, 0, 0, 0], np.float32)
+
+
+def _concat_chunks(directory: str) -> np.ndarray:
+    return np.concatenate([np.load(os.path.join(directory, f))
+                           for f in sorted(os.listdir(directory))])
+
+
+class PBnetPoseDataset:
+    """The PBnet training set (datasets_hdtf_pos_chunk_norm_eye_fast.py:100-115,
+    240-263): every video's hubert, pose and eye chunks concatenated and held
+    in memory; a video whose chunks do not load is left out."""
+
+    def __init__(self, hubert_dir: str, pose_dir: str, eye_dir: str, length_dict_path: str,
+                 mode: str = "train", num_frames: int = 100, seed: int = 0):
+        with open(length_dict_path, "rb") as f:
+            self.len_dict = pickle.load(f)
+        self.num_frames = num_frames
+        self.rng = np.random.RandomState(seed)
+        names = (sorted(set(os.listdir(pose_dir)) - set(HDTF_TEST_SPLIT) - set(HDTF_BAD_VIDEOS))
+                 if mode == "train" else list(HDTF_TEST_SPLIT))
+        self.cache = {}
+        for name in names:
+            try:
+                self.cache[name] = {kind: _concat_chunks(os.path.join(d, name)) for kind, d in
+                                    (("hubert", hubert_dir), ("pose", pose_dir),
+                                     ("eye", eye_dir))}
+            except (OSError, ValueError):
+                continue
+        self.names = list(self.cache)
+
+    @staticmethod
+    def normalize_pose(pose: np.ndarray) -> np.ndarray:
+        return (pose[..., :6] - PBNET_POSE_MIN) / (PBNET_POSE_MAX - PBNET_POSE_MIN)
+
+    def sample(self, idx: int) -> Dict[str, np.ndarray]:
+        """A random window of up to num_frames frames of video ``idx``:
+        'hubert' (T, 1024), 'pose' (T, 6) normalised, 'eye' (T, 2), 'name'."""
+        name = self.names[idx]
+        d = self.cache[name]
+        total = min(len(d["hubert"]), len(d["pose"]), len(d["eye"]))
+        nf = min(self.num_frames, total)
+        start = 0 if total <= nf else int(self.rng.randint(total - nf))
+        sl = slice(start, start + nf)
+        return {"hubert": d["hubert"][sl].astype(np.float32),
+                "pose": self.normalize_pose(d["pose"][sl].astype(np.float32)),
+                "eye": d["eye"][sl, :2].astype(np.float32),
+                "name": name}
+
+    def batches(self, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        """``steps`` batches of random videos' windows, edge-padded to
+        num_frames."""
+        for _ in range(steps):
+            idxs = self.rng.randint(len(self.names), size=batch_size)
+            samples = [self.sample(int(i)) for i in idxs]
+            yield {k: np.stack([_pad_frames(s[k], self.num_frames) for s in samples])
+                   for k in samples[0] if k != "name"}
+
+
+def lengths_to_mask(lengths: Sequence[int], max_len: Optional[int] = None) -> np.ndarray:
+    """(B,) lengths -> (B, T) bool mask (tensors_eye.py:4-8)."""
+    lengths = np.asarray(lengths)
+    t = int(max_len if max_len is not None else lengths.max())
+    return np.arange(t)[None, :] < lengths[:, None]
+
+
+def collate_padded(samples: List[Dict[str, np.ndarray]], keys=("x", "hubert")
+                   ) -> Dict[str, np.ndarray]:
+    """Zero-pad (T_i, D) sequences under ``keys`` to the batch's longest and
+    add 'mask' (B, T), 'lengths' (B,) and, when the samples are named,
+    'videoname' (tensors_eye.py:10-44)."""
+    lengths = np.asarray([len(s[keys[0]]) for s in samples])
+    t = int(lengths.max())
+    out = {}
+    for k in keys:
+        canvas = np.zeros((len(samples), t, samples[0][k].shape[-1]), samples[0][k].dtype)
+        for i, s in enumerate(samples):
+            canvas[i, : len(s[k])] = s[k]
+        out[k] = canvas
+    out["mask"] = lengths_to_mask(lengths, t)
+    out["lengths"] = lengths
+    if "name" in samples[0]:
+        out["videoname"] = [s["name"] for s in samples]
+    return out
+
+
+# --------------------------------------------------------------------- LFG
+
+def frame_pair_batches(frames_dir: str, batch_size: int, steps: int,
+                       rng: np.random.RandomState) -> Iterator[Dict[str, np.ndarray]]:
+    """``steps`` batches of random (source, driving) frame pairs, each pair
+    two random frames of one random training video, augmented
+    (frames_dataset.py:135-167 over the chunked-npy layout): 'source' and
+    'driving' (B, H, W, 3) f32 in [0, 1]."""
+    from dawn_tpu_torch.train.augment import augment_frame_pair
+
+    videos = [v for v in sorted(os.listdir(frames_dir))
+              if v not in HDTF_TEST_SPLIT and v not in HDTF_BAD_VIDEOS]
+    lengths: Dict[str, int] = {}
+    for _ in range(steps):
+        srcs, drvs = [], []
+        while len(srcs) < batch_size:
+            name = videos[rng.randint(len(videos))]
+            vd = os.path.join(frames_dir, name)
+            if name not in lengths:
+                chunks = sorted(glob.glob(os.path.join(vd, "chunk_*.npy")))
+                if not chunks:
+                    continue
+                lengths[name] = (len(chunks) - 1) * BLOCK + len(np.load(chunks[-1]))
+            n = lengths[name]
+            i, j = rng.randint(n), rng.randint(n)
+            srcs.append(read_block_range(vd, i, i + 1)[0])
+            drvs.append(read_block_range(vd, j, j + 1)[0])
+        pairs = [augment_frame_pair(rng, s.astype(np.float32) / 255.0,
+                                    d.astype(np.float32) / 255.0)
+                 for s, d in zip(srcs, drvs)]
+        yield {"source": np.stack([p[0] for p in pairs]),
+               "driving": np.stack([p[1] for p in pairs])}

@@ -39,7 +39,6 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from dawn_tpu_torch import resolve_device
@@ -48,6 +47,7 @@ from dawn_tpu_torch.models.dm.flow_diffusion import FaceLocEncoder, generate_bbo
 from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
 from dawn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from dawn_tpu_torch.train import to_device
 from dawn_tpu_torch.train.augment import color_jitter_video, jitter_factors
 
 
@@ -99,11 +99,15 @@ def cosine_decay(count: int, total_steps: int) -> float:
 class OptaxAdam(torch.optim.Optimizer):
     """optax.adam's update: mu and nu moving averages, bias correction by
     the incremented count, mu_hat / (sqrt(nu_hat) + eps), scaled by -lr.
-    The learning rate is the group's ``lr`` (set by the schedule)."""
+    With ``weight_decay`` it is optax.adamw's: weight_decay * p (the
+    parameter before the update) is added to that direction before the
+    scaling by -lr. The learning rate is the group's ``lr`` (set by the
+    schedule)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.99,
-                 eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -130,6 +134,9 @@ class OptaxAdam(torch.optim.Optimizer):
             den = torch._foreach_sqrt(torch._foreach_div(nus, 1 - b2 ** count))
             torch._foreach_add_(den, eps)
             torch._foreach_div_(mu_hat, den)
+            wd = group.get("weight_decay", 0.0)       # absent from older checkpoints
+            if wd:
+                torch._foreach_add_(mu_hat, params, alpha=wd)
             torch._foreach_add_(params, mu_hat, alpha=-group["lr"])
 
 
@@ -185,8 +192,7 @@ class DMTrainer:
 
     # ----------------------------------------------------------------- inputs
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-                                   device=self.device) for k, v in batch.items()}
+        return {k: to_device(v, self.device) for k, v in batch.items()}
 
     def prepare_inputs(self, batch, jitter: Optional[Dict[str, torch.Tensor]] = None):
         """(jittered) video, reference image, condition rows and mouth

@@ -1,4 +1,5 @@
-"""Load the released checkpoints into the port's modules.
+"""Load the released checkpoints into the port's modules, and write the
+two that the port's trainers make in the same layouts.
 
 Every file is read with ``torch.load(weights_only=True)``; nothing needs
 ``transformers``. Each loader is strict about what the port models: an
@@ -13,11 +14,12 @@ names (the reference's rotary ``freqs`` buffers, the recomputed sinusoidal
   conv's weight norm in either layout (``weight_g``/``weight_v`` or
   ``parametrizations.weight.original0/1``) folded into its kernel.
 - PBnet: ``checkpoint_*.pth.tar``, a bare CVAE state_dict beside its
-  ``opt.yaml``.
+  ``opt.yaml`` (written by :func:`save_pbnet_checkpoint`).
 - DAWN: ``DAWN_*.pth``, the UNet under ``['diffusion']`` with the
   ``denoise_fn.`` prefix.
 - LFG: ``LFG_*.pth``, the generator's part only (``['generator']``), as
-  sampling runs no other LFG net.
+  sampling runs no other LFG net; the whole file is
+  :func:`lfg_reference_state`'s layout.
 - Stage 1's face assets (:func:`load_face_assets`): the 3DDFA-V2 and
   FaceBoxes release files ``FaceBoxesProd.pth``, ``mb1_120x120.pth`` (its
   ``state_dict`` entry unwrapped, ``module.`` stripped), and the two
@@ -135,6 +137,13 @@ def load_pbnet_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
     return _report(path, load_strict(model, sd, path))
 
 
+def save_pbnet_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """A CVAE's state_dict as a bare ``checkpoint_*.pth.tar`` (on the CPU,
+    written through a temporary file)."""
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
 # -------------------------------------------------------------- DAWN, LFG
 
 def load_dawn_checkpoint(unet: torch.nn.Module, path: str) -> List[str]:
@@ -154,6 +163,21 @@ def load_lfg_generator(model: torch.nn.Module, path: str) -> List[str]:
     ``pixelwise_flow_predictor.*``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return _report(path, load_strict(model.generator, ckpt["generator"], path))
+
+
+def lfg_reference_state(flow_ae: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A port FlowAE's nets in the reference ``LFG_*.pth`` layout:
+    {'generator' (with the flow predictor nested as
+    ``pixelwise_flow_predictor.*``), 'region_predictor', 'bg_predictor'},
+    on the CPU. ``FlowAE.load_reference_checkpoint`` and
+    :func:`load_lfg_generator` read it back."""
+    def cpu(module, prefix=""):
+        return {prefix + k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+    return {"generator": {**cpu(flow_ae.generator),
+                          **cpu(flow_ae.pixelwise_flow_predictor, "pixelwise_flow_predictor.")},
+            "region_predictor": cpu(flow_ae.region_predictor),
+            "bg_predictor": cpu(flow_ae.bg_predictor)}
 
 
 # ------------------------------------------------------- stage 1's face assets

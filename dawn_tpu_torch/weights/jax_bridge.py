@@ -7,8 +7,13 @@ nested dicts of numpy arrays, ``{'unet': {'params'}, 'generator': {'params',
 variables (generator, region, background and pixelwise-flow predictors), and
 ``load_dm_trainer_variables`` a port ``DMTrainer`` from the UNet params, the
 frozen teacher and mask-encoder variables and, optionally, the EMA params of
-a JAX trainer state. ``hubert_state_dict`` and ``pbnet_state_dict`` turn the
-JAX HuBERT params and PBnet CVAE variables into the port's state_dicts, and
+a JAX trainer state. ``load_lfg_trainer_variables`` fills a port LFGTrainer
+from the LFG trainer's params, batch_stats and VGG variables
+(``vgg19_state_dict``: torchvision's names), and
+``load_pbnet_trainer_variables`` a port PBnetTrainer from the PBnet G and
+``PatchGAN1D`` variables. ``hubert_state_dict`` and ``pbnet_state_dict`` turn
+the JAX HuBERT params and PBnet CVAE variables into the port's state_dicts,
+and
 ``faceboxes_state_dict``, ``mobilenet_state_dict``,
 ``mobilenet_v3_state_dict`` and ``resnet22_state_dict`` stage 1's face nets
 (params and batch_stats) into the release files' layouts.
@@ -16,7 +21,8 @@ It is the inverse of the reference-checkpoint converters of the JAX package
 (``dawn_tpu/weights/torch_convert.py``, ``hubert_convert.py``), written anew
 here:
 
-- Dense (in, out) -> Linear.weight (out, in);
+- Dense (in, out) -> Linear.weight (out, in); LayerNorm scale, bias ->
+  weight, bias;
 - HWIO conv -> OIHW, or (O, I, 1, kh, kw) for the UNet's per-frame Conv3d;
   (k, I, O) conv1d -> (O, I, k);
 - the pre-flipped HWIO Upsample kernel -> ConvTranspose3d (I, O, 1, kh, kw);
@@ -32,6 +38,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from dawn_tpu_torch.models.lfg.vgg import VGG19_CONVS
 from dawn_tpu_torch.ops.convs import unflip_conv_transpose_weight
 from dawn_tpu_torch.weights.checkpoints import load_strict
 
@@ -203,6 +210,16 @@ def pixelwise_flow_state_dict(variables: Mapping[str, Any]) -> StateDict:
             **_under("occlusion", _conv2d(p["occlusion"]))}
 
 
+def vgg19_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX Vgg19Features variables {'params': {'conv_<pos>'}} ->
+    torchvision's ``features.<pos>.*`` names (the inverse of
+    ``convert_vgg19_features``)."""
+    sd: StateDict = {}
+    for pos, _ in VGG19_CONVS:
+        sd.update(_under(f"features.{pos}", _conv2d(variables["params"][f"conv_{pos}"])))
+    return sd
+
+
 def face_loc_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return {**_under("conv1", _conv2d(variables["params"]["conv1"])),
             **_under("conv2", _conv2d(variables["params"]["conv2"]))}
@@ -298,6 +315,16 @@ def pbnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
     state_dict."""
     return {**_under("encoder", _pbnet_encoder(variables["encoder"]["params"])),
             **_under("decoder", _pbnet_decoder(variables["decoder"]["params"]))}
+
+
+def patchgan_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """The JAX ``PatchGAN1D`` variables {'params': {'conv1'..'conv4',
+    'norm2', 'norm3'}} -> the port's state_dict."""
+    p = variables["params"]
+    sd = {**_under("norm2", _norm(p["norm2"])), **_under("norm3", _norm(p["norm3"]))}
+    for i in range(1, 5):
+        sd.update(_under(f"conv{i}", _conv1d(p[f"conv{i}"])))
+    return sd
 
 
 # ------------------------------------------------------- stage 1's face nets
@@ -411,6 +438,27 @@ def load_flow_ae_variables(flow_ae, variables: Mapping[str, Any]) -> None:
     load_state(flow_ae.bg_predictor, bg_predictor_state_dict(variables["bg_predictor"]))
     load_state(flow_ae.pixelwise_flow_predictor,
                pixelwise_flow_state_dict(variables["pixelwise_flow_predictor"]))
+
+
+def load_lfg_trainer_variables(trainer, params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any],
+                               vgg_variables: Optional[Mapping[str, Any]] = None) -> None:
+    """Fill a port LFGTrainer from a JAX LFG trainer state: ``state['params']``
+    and ``state['batch_stats']`` (per net) and, when given, ``state['vgg']``."""
+    load_flow_ae_variables(trainer.flow_ae, {k: {"params": params[k],
+                                                 "batch_stats": batch_stats[k]}
+                                             for k in params})
+    if vgg_variables is not None:
+        load_state(trainer.vgg, vgg19_state_dict(vgg_variables))
+
+
+def load_pbnet_trainer_variables(trainer, g_variables: Mapping[str, Any],
+                                 d_variables: Mapping[str, Any]) -> None:
+    """Fill a port PBnetTrainer from the JAX PBnet trainer's G (the CVAE
+    variables; the JAX state keeps them raveled: pass them unraveled) and D
+    (``PatchGAN1D``) variables."""
+    load_state(trainer.model, pbnet_state_dict(g_variables))
+    load_state(trainer.disc, patchgan_state_dict(d_variables))
 
 
 def load_dm_trainer_variables(trainer, unet_params: Mapping[str, Any],

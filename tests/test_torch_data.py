@@ -8,7 +8,7 @@ without landmarks. Then ``python -m dawn_tpu_torch.scripts.train_dm`` on
 the CPU at a tiny topology (yaml ``unet:``/``lfg:`` overrides, 32x32, 4
 frames): two stage-1 steps log finite metrics and save a checkpoint,
 ``--restore`` resumes from it, stage 2 runs a step, and the flags that are
-not ported raise.
+not ported raise (``--tensorboard`` is ported: tests/test_torch_train_clis.py).
 """
 
 import json
@@ -97,7 +97,7 @@ def test_cli_trains_restores_and_runs_stage2(tree, tmp_path):
     assert stage2.step == 1 and line["frames"] in (4, 5)
 
 
-@pytest.mark.parametrize("flag", ["--teacher-cache=x", "--prefetch", "--tensorboard",
+@pytest.mark.parametrize("flag", ["--teacher-cache=x", "--prefetch", "--teacher-cache-stride=2",
                                   "--sample-every=10"])
 def test_cli_unported_flags_raise(tree, flag):
     _, flags = tree

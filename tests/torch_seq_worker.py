@@ -16,7 +16,11 @@ names, collects the sharded results into whole tensors, and writes
   on the case's weights, inputs and noise;
 - ``train``: one ``DMTrainer.make_sharded_step`` step on the case's weights,
   batch and draws: the metrics, Adam's moments, the parameters and the EMA
-  after the step.
+  after the step;
+- ``lfg_train`` and ``pbnet_train``: one ``LFGTrainer`` or ``PBnetTrainer``
+  ``make_sharded_step`` step of a trainer built from the case's seed, on its
+  batch and draws: the metrics, Adam's first moments and the state after
+  the step (the LFG's running statistics included).
 """
 
 import os
@@ -88,6 +92,31 @@ def train(case, mesh):
             "ema": trainer.ema, "step": trainer.step}
 
 
+def lfg_train(case, mesh):
+    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.train.train_lfg import LFGTrainConfig, LFGTrainer
+
+    torch.manual_seed(case["seed"])
+    trainer = LFGTrainer(LFGTrainConfig(**case["config"]), flow_ae=FlowAE(**case["lfg"]),
+                         device="cpu")
+    metrics = trainer.make_sharded_step(mesh)(case["batch"], case["draws"])
+    return {"metrics": metrics, "state": trainer.flow_ae.state_dict(),
+            "mu": [trainer.optimizer.state[p]["mu"] for p in trainer.flow_ae.parameters()]}
+
+
+def pbnet_train(case, mesh):
+    from dawn_tpu_torch.models.pbnet.cvae import PBnetParams
+    from dawn_tpu_torch.train.train_pbnet import PBnetTrainConfig, PBnetTrainer
+
+    torch.manual_seed(case["seed"])
+    trainer = PBnetTrainer(PBnetTrainConfig(**case["config"]), hp=PBnetParams(**case["hp"]),
+                           device="cpu")
+    metrics = trainer.make_sharded_step(mesh)(case["batch"], case["epoch"], case["draws"])
+    params = list(trainer.model.parameters()) + list(trainer.disc.parameters())
+    mu = [opt.state[p]["mu"] for opt in trainer.optimizers for p in opt.param_groups[0]["params"]]
+    return {"metrics": metrics, "params": [p.detach() for p in params], "mu": mu}
+
+
 def main(spec_path, out_dir):
     torch.set_num_threads(1)
     maybe_initialize_distributed(device="cpu")
@@ -95,8 +124,9 @@ def main(spec_path, out_dir):
     results = {}
     for case in cases:
         mesh = make_mesh(seq_parallel=case["seq"])
-        results[case["name"]] = {"attention": attention, "sampler": sampler,
-                                 "train": train}[case["kind"]](case, mesh)
+        results[case["name"]] = {"attention": attention, "sampler": sampler, "train": train,
+                                 "lfg_train": lfg_train,
+                                 "pbnet_train": pbnet_train}[case["kind"]](case, mesh)
     torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
     dist.destroy_process_group()
 
