@@ -89,6 +89,21 @@ done" line with its seconds), any failure exits non-zero:
    round trip, and exactly 10 K1 and 10 K2 launches per step; reports the
    warm step time, examples/s, peak memory, and under torch.profiler the
    device's busy share and the kernels with the most device time.
+   dm trainer extras - the DM trainer's options at that recipe point: remat
+   'none', 'dots' and 'full' from one state, batch and set of draws, their
+   f32 gradients (bs 2, TF32 off, cuDNN deterministic) within 1e-6 of the
+   largest of 'none' (predicted bit-equal), then each mode's K1 and K2
+   launches a step (K1 twice under remat: its forward runs again in the
+   backward; K2 as without), warm step and peak memory at bs 4 in bf16;
+   the CLI with --teacher-cache (stride 20 over 4 videos of 40 frames, so
+   clips recur) and --sample-every 2 for 4 steps: hit rate above 0, the
+   7-panel PNG, 40 K1 + 40 K2 + the snapshot's 10 K1; the cached step
+   against the uncached one, alternated, and the teacher pass alone; the
+   snapshot's launches (10 K1, w=20 past T=4); --prefetch against the
+   plain CLI (batches on the card equal, losses bit-equal at every step
+   under cuDNN's deterministic algorithms, step walls); one use_fft_floss
+   step at bs 1 x 20 frames (an rfft of length 20), card against CPU in
+   f32 (rtol 1e-4).
    lfg train parity - one f32 LFGTrainer step (train-mode BatchNorm, the
    VGG19 perceptual pyramid, the TPS equivariance) at the full
    configs/lfg_hdtf128.yaml widths, B=2 at 128^2, seeded VGG19, card against
@@ -180,11 +195,24 @@ done" line with its seconds), any failure exits non-zero:
    dawn_tpu_torch.scripts.bench_attention``'s main() at the sampling top
    level with --prob-dtype bf16 --stripe 2 --seq-composed: every line of
    the JAX script's printed, K1p, K1, K3, K5 and K6 launched.
+   pbnet sharded losses - on that process group, PBnetTrainer's
+   make_sharded_step with every loss (rc, rcw, reg, kl, ssim, var, mmd, hp:
+   the MIN/MAX all-reduces and the gathered z on NCCL) against the
+   unsharded step, shipped width, dropout 0.1: metrics rtol 1e-5, first
+   moments 1e-5 of their max.
+   cached cli nccl - on that process group, the DM CLI with an f16
+   --teacher-cache and --sample-every 2 for 4 steps at bs 2 in bf16: the
+   sharded step and TeacherCache.convert_batch_shared (barriers on NCCL);
+   finite losses, hit rate above 0, f16 entries, the PNG, 40 K1 + 40 K2 +
+   the snapshot's 10 K1 (one 'seq' rank: K1/K2, not the stripe route).
 19. kernels - one JSON line listing every ported kernel (K1-K6, K1p) with
    its numbers and its launches on every path (K1's ``launches``: the
    pipeline path's CLI call; K1p's: the bench attention call, K1p's only
-   caller; the trainer paths lfg_train, pbnet_train and trainer_clis with
-   0 for every kernel).
+   caller; the trainer paths lfg_train, pbnet_train, pbnet_sharded and
+   trainer_clis with 0 for every kernel; the DM options' paths
+   train_remat_none, train_remat_dots, train_remat_full, train_uncached,
+   train_cached, snapshot, train_prefetch, train_fft_floss and
+   train_cached_nccl).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -1332,6 +1360,347 @@ def train_path(card):
     torch.cuda.empty_cache()
     shutil.rmtree(tmp)
     return tuple(a + b for a, b in zip(launches1, launches2))
+
+
+def dm_trainer_extras(card):
+    """Phase: the DM trainer's options at the stage-1 per-chip recipe point.
+    remat 'none', 'dots' and 'full' from one state, batch and set of draws:
+    the f32 gradients (TF32 off, cuDNN deterministic) of 'dots' and 'full'
+    against 'none', then each mode's K1/K2 launches, warm step and peak
+    memory at bs 4 in bf16; the CLI with --teacher-cache over two passes of
+    a small tree (hit rate, snapshot PNG), the cached step against the
+    uncached one and the snapshot's launches; --prefetch against the same
+    run without it (batches, losses, step walls); one use_fft_floss step,
+    card against CPU in f32. Returns {path: (K1, ..., K6, K1p) launches}."""
+    import tempfile
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+    from dawn_tpu_torch.scripts import train_dm as cli
+    from dawn_tpu_torch.train.data import HDTFVideoDataset, TeacherCache
+    from dawn_tpu_torch.train.train_dm import REMAT, DMTrainConfig, DMTrainer
+
+    paths = {}
+    jitter = {k: torch.tensor([v, v]) for k, v in (
+        ("brightness", 1.1), ("contrast", 0.9), ("saturation", 1.2), ("hue", 0.02))}
+
+    # remat: f32 gradients of one state, batch and set of draws
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    b, t = 2, 20
+    torch.manual_seed(SEED)
+    trainer = DMTrainer(DMTrainConfig(win_width=20))
+    r = np.random.RandomState(SEED + 40)
+    ls = trainer.config.latent_size
+    draws = {"t": np.array([371, 802]), "noise": r.randn(b, t, ls, ls, 3).astype(np.float32),
+             "drop": r.rand(b, t) < 0.1, "jitter": jitter}
+    batch = trainer._batch(_train_batch(b, t, 128, SEED + 41))
+    grads, counts = {}, {}
+    for remat in REMAT:
+        trainer.config.remat = remat
+        trainer.unet.zero_grad(set_to_none=True)
+        _reset_counts()
+        total, _ = trainer.loss_fn(batch, draws)
+        total.backward()
+        counts[remat] = _counts()
+        grads[remat] = (total.item(), [p.grad for p in trainer.unet.parameters()])
+    torch.backends.cudnn.deterministic = False
+    top = max(g.abs().max().item() for g in grads["none"][1])
+    errs = {m: max((a - c).abs().max().item() for a, c in zip(grads[m][1], grads["none"][1]))
+            / top for m in ("dots", "full")}
+    same = {m: all(torch.equal(a, c) for a, c in zip(grads[m][1], grads["none"][1]))
+            and grads[m][0] == grads["none"][0] for m in ("dots", "full")}
+    print(f"dm trainer extras [{card}] remat f32 (TF32 off, cuDNN deterministic), stage 1 bs "
+          f"{b} x {t} frames, full width, one state, batch and draws: loss none "
+          f"{grads['none'][0]:.7f}, dots {grads['dots'][0]:.7f}, full {grads['full'][0]:.7f}; "
+          f"gradients against 'none': dots max err {errs['dots']:.3e}, full {errs['full']:.3e} "
+          f"of their max {top:.4e} (tol 1e-6), bit-equal dots {same['dots']}, full "
+          f"{same['full']}; K1/K2 launches none {counts['none'][:2]}, dots "
+          f"{counts['dots'][:2]}, full {counts['full'][:2]}", flush=True)
+    check(max(errs.values()) <= 1e-6, f"remat gradients differ from 'none': {errs}")
+    check(counts["none"] == (10, 10, 0, 0, 0, 0, 0)
+          and counts["dots"] == counts["full"] == (20, 10, 0, 0, 0, 0, 0),
+          f"remat launches (K1-K6, K1p) {counts}")
+    del trainer, grads, batch
+    torch.cuda.empty_cache()
+
+    # remat at the recipe point: bs 4, bf16, cuDNN TF32 (PyTorch's default)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.manual_seed(SEED)
+    trainer = DMTrainer(DMTrainConfig(win_width=20, compute_dtype=torch.bfloat16))
+    batches = [_train_batch(4, 20, 128, SEED + 42 + i) for i in range(2)]
+    timing = {}
+    for remat in REMAT:
+        trainer.config.remat = remat
+        trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(2):
+            _reset_counts()
+            t0 = time.perf_counter()
+            m = trainer.train_step(batches[(i + 1) % 2])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(m["total"]) and m["grads_finite"] == 1.0,
+                  f"remat {remat} loss not finite")
+        paths[f"train_remat_{remat}"] = _counts()
+        timing[remat] = (1e3 * min(times), 1e3 * max(times),
+                         torch.cuda.max_memory_allocated() / 2**30)
+    print(f"dm trainer extras [{card}] remat bs 4 x 20 frames, 128^2, full width, bf16, warm "
+          f"step ms (min-max of 2) and peak memory: " + "; ".join(
+              f"{m} {a:.1f}-{z:.1f} ms, {g:.2f} GiB, K1 x {paths[f'train_remat_{m}'][0]}, K2 x "
+              f"{paths[f'train_remat_{m}'][1]}" for m, (a, z, g) in timing.items()), flush=True)
+    check(paths["train_remat_dots"] == paths["train_remat_full"] == (20, 10, 0, 0, 0, 0, 0),
+          f"remat bf16 launches {paths}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the CLI: teacher cache over two passes of 4 videos x 2 clip starts,
+    # the snapshot every 2 steps; then --prefetch against the same run
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dawn_extras_")
+    flags = write_hdtf_tree(os.path.join(tmp, "data"),
+                            {f"vid_{i:03d}": 40 for i in range(4)}, 128, SEED + 44)
+    with open(os.path.join(root, "configs", "dm_train_stage1.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(batch_size=4, compute_dtype="bfloat16")
+    config = os.path.join(tmp, "stage1.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    base = [f"--config={config}", *flags, "--log-every=1"]
+    cache_dir, work = os.path.join(tmp, "cache"), os.path.join(tmp, "cached")
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(base + ["--steps=4", f"--teacher-cache={cache_dir}",
+                               "--teacher-cache-stride=20", "--sample-every=2",
+                               f"--workdir={work}"])
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    lines = [json.loads(x) for x in open(os.path.join(work, "metrics.jsonl"))]
+    rates = [x["teacher_cache_hit_rate"] for x in lines]
+    png = os.path.join(work, "imgshots", "step_0000002.png")
+    with Image.open(png) as im:
+        size = im.size
+    check(all(np.isfinite(x["total"]) for x in lines) and rates[-1] > 0,
+          f"teacher-cache run: hit rates {rates}")
+    check(size == (4 * 128, 7 * 128), f"snapshot PNG size {size}")
+    check(launches == (50, 40, 0, 0, 0, 0, 0),
+          f"cached CLI launches (K1-K6, K1p) {launches} != 4 steps x 10 + one snapshot's 10 K1")
+    print(f"dm trainer extras [{card}] CLI --teacher-cache (stride 20: 8 clips of 4 videos), bs "
+          f"4, bf16, 4 steps + a snapshot at step 2 in {secs:.2f} s: hit rates {rates}, step "
+          f"walls (s) {[round(x['wall'], 3) for x in lines]}, {len(os.listdir(cache_dir))} "
+          f"cache entries, {png[len(tmp) + 1:]} {size[0]}x{size[1]}; K1 x {launches[0]}, K2 x "
+          f"{launches[1]}", flush=True)
+
+    dirs = dict(f[2:].split("=", 1) for f in flags)
+    ds = HDTFVideoDataset(dirs["frames-dir"], dirs["hubert-dir"], dirs["pose-dir"],
+                          dirs["eye-dir"], dirs["length-dict"], lmk_dir=dirs["lmk-dir"],
+                          num_frames=20, seed=SEED, start_stride=20)
+    raw, meta = next(ds.batches(4, 1, with_meta=True))
+    cache = TeacherCache(os.path.join(tmp, "cache2"))
+    cached = cache.convert_batch(raw, meta, trainer.teacher_precompute)
+    step_ms, teacher_ms = {}, []
+    for _ in range(3):
+        for label, bt in (("uncached", raw), ("cached", cached)):
+            for _ in range(3):
+                _reset_counts()
+                t0 = time.perf_counter()
+                trainer.train_step(bt)
+                torch.cuda.synchronize()
+                step_ms.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            paths[f"train_{label}"] = _counts()
+        t0 = time.perf_counter()
+        trainer.teacher_precompute(raw["video"])
+        torch.cuda.synchronize()
+        teacher_ms.append(1e3 * (time.perf_counter() - t0))
+    _reset_counts()
+    t0 = time.perf_counter()
+    snaps = trainer.snapshot(raw)
+    snap_secs = time.perf_counter() - t0
+    paths["snapshot"] = _counts()
+    check(sorted(snaps) == sorted(("real_frames", "real_decode", "fake_decode", "real_flow_fig",
+                                   "fake_flow_fig", "real_conf_fig", "fake_conf_fig"))
+          and all(v.shape == (4, 128, 128, 3) and np.isfinite(v.astype(np.float32)).all()
+                  for v in snaps.values()), "snapshot panels")
+    check(paths["snapshot"] == (10, 0, 0, 0, 0, 0, 0) and paths["train_cached"] == (10, 10, 0,
+                                                                                      0, 0, 0, 0),
+          f"snapshot / cached-step launches {paths['snapshot']} {paths['train_cached']}")
+    print(f"dm trainer extras [{card}] bs 4 x 20 frames bf16 warm train_step, 3 rounds of 3 "
+          f"each, alternating: "
+          f"uncached (teacher + color jitter) {[round(x, 1) for x in step_ms['uncached']]} ms, "
+          f"median {np.median(step_ms['uncached']):.1f}; cached (teacher tensors from the cache)"
+          f" {[round(x, 1) for x in step_ms['cached']]} ms, median "
+          f"{np.median(step_ms['cached']):.1f}; the teacher pass alone "
+          f"{[round(x, 1) for x in teacher_ms]} ms; snapshot (EMA weights, T=4, w=20 past T) "
+          f"{1e3 * snap_secs:.1f} ms, K1 x {paths['snapshot'][0]}", flush=True)
+    del trainer, snaps
+    torch.cuda.empty_cache()
+
+    pre_batches = list(ds.batches_prefetched(4, 3, device="cuda"))
+    ds_plain = HDTFVideoDataset(dirs["frames-dir"], dirs["hubert-dir"], dirs["pose-dir"],
+                                dirs["eye-dir"], dirs["length-dict"], lmk_dir=dirs["lmk-dir"],
+                                num_frames=20, seed=SEED, start_stride=20)
+    next(ds_plain.batches(4, 1))          # the batch drawn above, so both streams align
+    plain_batches = list(ds_plain.batches(4, 3))
+    check(all(v.is_cuda for bt in pre_batches for v in bt.values())
+          and all(np.array_equal(p[k], q[k].cpu().numpy()) for p, q in
+                  zip(plain_batches, pre_batches) for k in p),
+          "prefetched batches differ from the plain ones")
+    # cuDNN's deterministic algorithms: the same batches then give the same
+    # updates, so every step's losses are bit-equal, not only step 0's
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    for label, extra in (("plain", []), ("prefetch", ["--prefetch"])):
+        _reset_counts()
+        cli.main(base + ["--steps=3", "--sample-every=0",
+                         f"--workdir={os.path.join(tmp, label)}", *extra])
+        paths[f"train_{label}"] = _counts()
+        runs[label] = [json.loads(x) for x in open(os.path.join(tmp, label, "metrics.jsonl"))]
+    torch.backends.cudnn.deterministic = False
+    diffs = [max(abs(a[k] - c[k]) / max(abs(c[k]), 1e-6) for k in ("total", "loss", "floss"))
+             for a, c in zip(runs["prefetch"], runs["plain"])]
+    print(f"dm trainer extras [{card}] --prefetch vs plain CLI, bs 4, bf16, 3 steps: 3 "
+          f"prefetched batches on the card equal the plain ones; totals "
+          f"{[round(x['total'], 6) for x in runs['prefetch']]} vs "
+          f"{[round(x['total'], 6) for x in runs['plain']]}, rel diffs "
+          f"{[f'{d:.2e}' for d in diffs]} (cuDNN deterministic, tol 0); step walls (s) "
+          f"prefetch {[round(x['wall'], 3) for x in runs['prefetch']]}, plain "
+          f"{[round(x['wall'], 3) for x in runs['plain']]}", flush=True)
+    check(max(diffs) == 0, f"prefetch losses differ: {diffs}")
+    check(paths["train_prefetch"] == paths["train_plain"] == (30, 30, 0, 0, 0, 0, 0),
+          f"prefetch launches {paths['train_prefetch']} {paths['train_plain']}")
+    del paths["train_plain"]
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+
+    # one use_fft_floss step, the card against the CPU, f32, TF32 off, at the
+    # recipe's 20 frames: an rfft of length 20 (11 bins, mixed radix)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DMTrainConfig(win_width=20, use_fft_floss=True)
+    torch.manual_seed(SEED)
+    gpu = DMTrainer(cfg, device="cuda")
+    cpu = DMTrainer(cfg, device="cpu")
+    for a, c in ((gpu.unet, cpu.unet), (gpu.flow_ae, cpu.flow_ae), (gpu.face_loc, cpu.face_loc)):
+        c.load_state_dict(a.state_dict())
+    r = np.random.RandomState(SEED + 45)
+    draws = {"t": np.array([503]), "noise": r.randn(1, 20, ls, ls, 3).astype(np.float32),
+             "drop": r.rand(1, 20) < 0.1, "jitter": {k: v[:1] for k, v in jitter.items()}}
+    batch = _train_batch(1, 20, 128, SEED + 46)
+    _reset_counts()
+    got = gpu.train_step(batch, draws)
+    paths["train_fft_floss"] = _counts()
+    want = cpu.train_step(batch, draws)
+    err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+              for k in ("loss", "floss", "mouth_loss", "total"))
+    print(f"dm trainer extras [{card}] use_fft_floss train_step f32 full width bs 1 T=20, card "
+          f"vs CPU, TF32 off: floss {got['floss']:.6f} vs {want['floss']:.6f}, total "
+          f"{got['total']:.6f} vs {want['total']:.6f}, max rel err {err:.3e} (tol 1e-4); K1 x "
+          f"{paths['train_fft_floss'][0]}, K2 x {paths['train_fft_floss'][1]}", flush=True)
+    check(err <= 1e-4, f"fft floss card vs CPU {err}")
+    check(paths["train_fft_floss"] == (10, 10, 0, 0, 0, 0, 0),
+          f"fft floss launches {paths['train_fft_floss']}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return paths
+
+
+def cached_cli_nccl(card):
+    """Phase: the DM CLI with an f16 --teacher-cache on the one-rank NCCL
+    group, so that the sharded step and TeacherCache.convert_batch_shared
+    (its barriers on NCCL) run, with --sample-every 2: 4 steps at bs 2 in
+    bf16 over 2 videos of 40 frames (stride 20: 4 clips recur). Finite
+    losses, a hit rate above 0, one f16 entry per clip drawn, the PNG.
+    Returns the (K1, ..., K6, K1p) launches."""
+    import tempfile
+    import numpy as np
+    import yaml
+    from dawn_tpu_torch.scripts import train_dm as cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dawn_cached_nccl_")
+    flags = write_hdtf_tree(os.path.join(tmp, "data"), {"vid_000": 40, "vid_001": 40}, 128,
+                            SEED + 49)
+    with open(os.path.join(root, "configs", "dm_train_stage1.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(batch_size=2, compute_dtype="bfloat16")
+    config, cache, work = (os.path.join(tmp, n) for n in ("stage1.yaml", "cache", "run"))
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli.main([f"--config={config}", *flags, "--log-every=1", "--steps=4",
+              f"--teacher-cache={cache}", "--teacher-cache-stride=20", "--teacher-cache-f16",
+              "--sample-every=2", f"--workdir={work}"])
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    lines = [json.loads(x) for x in open(os.path.join(work, "metrics.jsonl"))]
+    rates = [x["teacher_cache_hit_rate"] for x in lines]
+    entries = sorted(os.listdir(cache))
+    with np.load(os.path.join(cache, entries[0])) as z:
+        f16 = all(z[k].dtype == np.float16 for k in z.files)
+    print(f"cached cli nccl [{card}]: DM CLI on a one-rank NCCL mesh (sharded step, shared "
+          f"teacher cache, f16), bs 2 x 20 frames, bf16, 4 steps in {secs:.2f} s: totals "
+          f"{[round(x['total'], 6) for x in lines]}, hit rates {rates}, entries {entries}; "
+          f"launches (K1-K6, K1p) {launches}", flush=True)
+    check(all(np.isfinite(x["total"]) and x["grads_finite"] == 1.0 for x in lines)
+          and rates[-1] > 0 and f16 and len(entries) <= 4
+          and os.path.isfile(os.path.join(work, "imgshots", "step_0000002.png")),
+          f"cached CLI on NCCL: hit rates {rates}, entries {entries}, f16 {f16}")
+    check(launches == (50, 40, 0, 0, 0, 0, 0),
+          f"cached CLI on NCCL launches (K1-K6, K1p) {launches} != 4 steps x 10 + one "
+          f"snapshot's 10 K1")
+    shutil.rmtree(tmp)
+    return launches
+
+
+def pbnet_sharded_losses(card, mesh):
+    """Phase: PBnetTrainer.make_sharded_step on the one-rank NCCL mesh with
+    the losses rc, rcw, reg, kl, ssim, var, mmd and hp (MIN/MAX all-reduces,
+    the differentiable all-gather of z, whole-batch draws on NCCL) against
+    the unsharded step on the card, shipped width, dropout 0.1, B=4 x T=40
+    with ragged lengths, the same seed: metrics rtol 1e-5, Adam's first
+    moments to 1e-5 of each model's largest."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.models.pbnet.cvae import PBnetParams
+    from dawn_tpu_torch.train.train_pbnet import PBnetTrainConfig, PBnetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lambdas = {k: 1.0 for k in ("rc", "rcw", "reg", "kl", "ssim", "var", "mmd", "hp")}
+    batch = _pbnet_batch(np.random.RandomState(SEED + 47), 4, 40, 6, [40, 33, 27, 40])
+    trainers = []
+    for _ in range(2):
+        torch.manual_seed(SEED + 48)
+        trainers.append(PBnetTrainer(PBnetTrainConfig(kind="pose"),
+                                     hp=PBnetParams(dropout=0.1, lambdas=lambdas)))
+    _reset_counts()
+    want = trainers[0].train_step(batch)
+    got = trainers[1].make_sharded_step(mesh)(batch)
+    launches = _counts()
+    err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-6) for k in want)
+    mu_err = []
+    for i in range(2):
+        sharded, plain = trainers[1].optimizers[i], trainers[0].optimizers[i]
+        pairs = [(sharded.state[a]["mu"], plain.state[c]["mu"])
+                 for a, c in zip(sharded.param_groups[0]["params"],
+                                 plain.param_groups[0]["params"])]
+        top = max(c.abs().max().item() for _, c in pairs)
+        mu_err.append(max((a - c).abs().max().item() for a, c in pairs) / top)
+    print(f"pbnet sharded losses [{card}]: make_sharded_step on a one-rank NCCL mesh vs "
+          f"train_step, lambdas {sorted(lambdas)}, shipped width, dropout 0.1, B=4 T=40: "
+          + ", ".join(f"{k} {got[k]:.6f}" for k in ("ssim", "var", "mmd", "hp", "g_total"))
+          + f"; max rel err {err:.3e} (tol 1e-5); Adam mu err G {mu_err[0]:.3e}, D "
+          f"{mu_err[1]:.3e} of their max (tol 1e-5)", flush=True)
+    check(set(lambdas) <= set(got), f"sharded PBnet metrics {sorted(got)}")
+    check(err <= 1e-5 and max(mu_err) <= 1e-5, f"sharded PBnet losses {err} {mu_err}")
+    check(launches == (0,) * 7, f"pbnet sharded launches (K1-K6, K1p) {launches}")
+    del trainers
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _update_errors(pairs, before, mu, lr, clear_of_max):
@@ -2623,6 +2992,7 @@ def main():
     k2 = phase(kernel_k2, smi, rates)
     phase(train_parity)
     train = phase(train_path, smi)
+    extras = phase(dm_trainer_extras, smi)
     phase(lfg_train_parity)
     lfg_train = phase(lfg_train_path, smi)
     phase(pbnet_train_parity)
@@ -2646,6 +3016,8 @@ def main():
     mesh = make_mesh()
     seq_sample = phase(seq_sampling, smi, mesh)
     seq_train = phase(seq_training, smi, mesh)
+    pbnet_sharded = phase(pbnet_sharded_losses, smi, mesh)
+    cached_nccl = phase(cached_cli_nccl, smi)
     bench = phase(bench_attention, smi)
     dist.destroy_process_group()
     shutil.rmtree(store)
@@ -2655,7 +3027,8 @@ def main():
              "sample_T800": phase(video_path, smi, 800, decode_chunk=32),
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
              "temporal_attention_grad_T400": grad_t400, "bench_attention": bench,
-             "lfg_train": lfg_train, "pbnet_train": pbnet_train, "trainer_clis": clis}
+             "lfg_train": lfg_train, "pbnet_train": pbnet_train, "trainer_clis": clis,
+             "pbnet_sharded": pbnet_sharded, "train_cached_nccl": cached_nccl, **extras}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,

@@ -1,10 +1,17 @@
-"""Build and load the hand-written CUDA kernels under ``csrc/``.
+"""Build and load the hand-written CUDA kernels under ``csrc/`` and the host
+library under ``csrc/host/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (git-ignored), keyed
 on a hash of the source, every shared header ``csrc/*.cuh`` and the flags,
 then loaded with ``ctypes``. The build happens on first use; :func:`build_all`
-starts one ``nvcc`` per source at once. Nothing here runs at import time.
+starts one ``nvcc`` per source at once. :func:`sources` and
+:func:`build_all` cover the kernels only.
+
+Each ``csrc/host/<name>.cpp`` (the threaded .npy reader of the training
+input pipeline) is compiled by ``g++ -O3 -fPIC -std=c++17 -shared -pthread``
+into ``_build/host-<name>-<hash>.so``, keyed on its source and the flags, at
+first use (:func:`load_host`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -87,4 +97,34 @@ def load(name: str) -> ctypes.CDLL:
         proc, tmp, out = _start_build(name)
         _finish_build(name, proc, tmp, out)
         lib = _loaded[name] = ctypes.CDLL(out)
+    return lib
+
+
+def _host_library_path(name: str) -> str:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(HOST_DIR, f"{name}.cpp"), "rb") as fh:
+        digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"host-{name}-{digest.hexdigest()[:16]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/host/<name>.cpp``, built with g++ if
+    needed; raises when it cannot be built."""
+    key = f"host/{name}"
+    lib = _loaded.get(key)
+    if lib is None:
+        out = _host_library_path(name)
+        if not os.path.exists(out):
+            cxx = shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError(f"no C++ compiler (g++) to build csrc/host/{name}.cpp")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp,
+                                   os.path.join(HOST_DIR, f"{name}.cpp")],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for csrc/host/{name}.cpp:\n{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[key] = ctypes.CDLL(out)
     return lib

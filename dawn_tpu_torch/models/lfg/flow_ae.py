@@ -8,8 +8,10 @@ teacher pass of the training loss. Defaults are the 128^2 LFG widths of
 ``configs/lfg_hdtf128.yaml``. BatchNorm runs in train mode only in the nets
 whose keyword dict holds ``train_bn=True`` (the LFG trainer's); the teacher
 and the pipeline build theirs without it, whatever ``.train()`` says.
-``reconstruct_video`` and ``motion_transfer`` (the DM training snapshot's
-decode) are not ported yet; the LFG trainer composes the nets itself.
+``motion_transfer`` reconstructs driving frames by warping their sources,
+and ``reconstruct_video`` runs it over a clip against its reference frame
+(the DM training snapshot's real decode); the LFG trainer composes the nets
+itself.
 """
 
 from __future__ import annotations
@@ -59,6 +61,38 @@ class FlowAE(nn.Module):
         }
         for module, sd in parts.items():
             load_strict(module, sd, path)
+
+    def motion_transfer(self, source: torch.Tensor, driving: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+        """Reconstruction of the (N, H, W, 3) ``driving`` frames by warping
+        their ``source`` frames: 'optical_flow', 'occlusion_map',
+        'prediction', 'deformed', 'bottle_neck_feat' and the region and
+        background parameters."""
+        src_params = self.region_predictor(source)
+        drv_params = self.region_predictor(driving)
+        bg = self.bg_predictor(source, driving)
+        motion = self.pixelwise_flow_predictor(source, drv_params, src_params, bg)
+        out = self.generator(source, motion)
+        return {**out, "source_region_params": src_params,
+                "driving_region_params": drv_params, "bg_params": bg}
+
+    def reconstruct_video(self, ref_img: torch.Tensor, video: torch.Tensor
+                          ) -> Dict[str, torch.Tensor]:
+        """:meth:`motion_transfer` of every frame of a (B, T, H, W, 3) video
+        from its (B, H, W, 3) reference, all B*T frames in one batch: the
+        teacher tensors of :meth:`teacher_outputs` plus 'real_out_vid' and
+        'real_warped_vid' (B, T, H, W, 3)."""
+        b, t, h, w, c = video.shape
+        src = ref_img[:, None].expand(b, t, h, w, c).reshape(b * t, h, w, c)
+        out = self.motion_transfer(src, video.reshape(b * t, h, w, c))
+        ls = out["optical_flow"].shape[1]
+        return {
+            "real_vid_grid": out["optical_flow"].reshape(b, t, ls, ls, 2),
+            "real_vid_conf": out["occlusion_map"].reshape(b, t, ls, ls, 1),
+            "real_out_vid": out["prediction"].reshape(b, t, h, w, c),
+            "real_warped_vid": out["deformed"].reshape(b, t, h, w, c),
+            "ref_img_fea": out["bottle_neck_feat"].reshape(b, t, ls, ls, -1)[:, 0],
+        }
 
     def teacher_outputs(self, ref_img: torch.Tensor, video: torch.Tensor
                         ) -> Dict[str, torch.Tensor]:

@@ -4,8 +4,13 @@ Port of ``dawn_tpu/models/lfg/generator.py:61-185``: ``encode`` gives the skip
 pyramid of a source image, ``compute_fea`` its bottleneck feature (the
 diffusion's image condition), and ``decode_with_flow_batched`` decodes
 (B, T) flow and occlusion videos against the B sources, each encoded once,
-all frames in one batch, every warp gathering the shared source. Calling the
-module is the training path's motion transfer: one flow per source. Module
+all frames in one batch, every warp gathering the shared source.
+``decode`` warps and decodes one frame per source (``:74-95``, through
+``decode_shared``), and
+``decode_with_flow`` (``:133-149``) decodes a (T, h, w) flow video against
+one source (``decode_shared``) or against T sources, one a frame
+(``decode``). Calling the module is the training path's motion transfer:
+one flow per source. Module
 names follow the reference generator's ``state_dict``; BatchNorm runs in
 train mode when built with ``train_bn``.
 """
@@ -60,6 +65,17 @@ class LFGGenerator(nn.Module):
         """Bottleneck feature (N, H/4, W/4, 256)."""
         return self.encode(source_image)[-1]
 
+    def decode(self, source_image: torch.Tensor, skips: List[torch.Tensor],
+               optical_flow: torch.Tensor, occlusion_map: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+        """Warp + decode, one frame per source: the sources (N, H, W, 3), their
+        skips, flow (N, h, w, 2) and occlusion (N, h, w, 1) share the batch N
+        (:meth:`decode_shared` with one frame a source). Returns (N, H, W, 3)
+        'prediction' and 'deformed'."""
+        out = self.decode_shared(source_image, skips, optical_flow[:, None],
+                                 occlusion_map[:, None])
+        return {k: v[:, 0] for k, v in out.items()}
+
     def decode_shared(self, source_image: torch.Tensor, skips: List[torch.Tensor],
                       optical_flow: torch.Tensor, occlusion_map: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
@@ -80,6 +96,20 @@ class LFGGenerator(nn.Module):
             "deformed": deform_input_shared(source_image, optical_flow).float(),
         }
 
+    def decode_with_flow(self, source_image: torch.Tensor, optical_flow: torch.Tensor,
+                         occlusion_map: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Decode a flow video: flow (T, h, w, 2), occlusion (T, h, w, 1), and
+        one source (1, H, W, 3), encoded once and shared by the T frames, or T
+        sources (T, H, W, 3), one a frame. Returns (T, H, W, 3) 'prediction'
+        and 'deformed'."""
+        t = optical_flow.shape[0]
+        skips = self.encode(source_image)
+        if source_image.shape[0] == 1 and t > 1:
+            out = self.decode_shared(source_image, skips, optical_flow[None],
+                                     occlusion_map[None])
+            return {k: v[0] for k, v in out.items()}
+        return self.decode(source_image, skips, optical_flow, occlusion_map)
+
     def decode_with_flow_batched(self, source_image: torch.Tensor,
                                  optical_flow: torch.Tensor,
                                  occlusion_map: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -96,7 +126,5 @@ class LFGGenerator(nn.Module):
         and the two motion tensors."""
         skips = self.encode(source_image)
         flow, occ = motion_params["optical_flow"], motion_params["occlusion_map"]
-        out = {k: v[:, 0] for k, v in self.decode_shared(source_image, skips, flow[:, None],
-                                                          occ[:, None]).items()}
-        return {**out, "bottle_neck_feat": skips[-1], "optical_flow": flow,
-                "occlusion_map": occ}
+        return {**self.decode(source_image, skips, flow, occ), "bottle_neck_feat": skips[-1],
+                "optical_flow": flow, "occlusion_map": occ}

@@ -180,15 +180,16 @@ class CVAE(nn.Module):
                      mask: Optional[torch.Tensor], epoch: float = 0,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, torch.Tensor]] = None, encode_fn=None,
-                     total=L.no_reduce):
+                     total=L.no_reduce, shard: Optional[Tuple[int, slice]] = None):
         """The mixed loss sum_k lambda_k loss_k over ``hp.lambdas`` and the
         terms (cae.py:66-85), every loss of the reference's registry, the KL
-        annealed by :func:`kl_anneal`. 'mmd' takes its N(0, 1) samples and
-        'hp' its directions from ``draws`` ('mmd', 'hp'), else from
-        ``generator``; 'hp' needs ``encode_fn`` (x -> latent, the
-        reference's model.return_latent). ``total`` sums a count over the
-        ranks of a data-parallel step (see :mod:`.losses`); 'ssim', 'var',
-        'mmd' and 'hp' take the local batch only."""
+        annealed by :func:`kl_anneal`. 'mmd' takes its N(0, 1) samples (the
+        whole batch's) and 'hp' its directions (this batch's rows) from
+        ``draws`` ('mmd', 'hp'), else from ``generator``; 'hp' needs
+        ``encode_fn`` (x -> latent, the reference's model.return_latent).
+        ``total`` holds the reductions over the ranks of a data-parallel
+        step and ``shard`` = (n, rows) this rank's rows of the batch of n
+        (see :mod:`.losses`): every term is then this rank's share."""
         hp = self.hp
         draws = draws or {}
         out = batch_out["output"]
@@ -200,10 +201,11 @@ class CVAE(nn.Module):
                 losses["kl"] = kl_anneal(epoch) * L.kl_loss(batch_out["mu"],
                                                             batch_out["logvar"], m, total)
             elif name == "mmd":
-                losses["mmd"] = L.mmd_loss(batch_out["z"], draws.get("mmd"), generator)
+                losses["mmd"] = L.mmd_loss(batch_out["z"], draws.get("mmd"), generator,
+                                           total=total)
             elif name == "hp":
                 losses["hp"] = L.hessian_penalty(encode_fn, x_delta, dzs=draws.get("hp"),
-                                                 generator=generator)
+                                                 generator=generator, total=total, shard=shard)
             else:
                 losses[name] = L.get_loss_function(name)(out, x_delta, m, total=total)
         mixed = sum(hp.lambdas[k] * v for k, v in losses.items())

@@ -15,24 +15,49 @@ the reference stay:
 ``mmd`` and ``hp`` take their noise as tensors, or draw it from an explicit
 ``torch.Generator``.
 
-For a data-parallel step, ``rc``, ``rcw``, ``reg`` and ``kl`` take
-``total``: a function that sums a count over the ranks. Each then gives
-this rank's share of the whole batch's mean (its sum over the whole
-batch's count), so the shares of the ranks add up to the loss of the whole
-batch.
+For a data-parallel step every loss takes ``total``, the reductions over
+the ranks (:class:`OneRank` here, ``dawn_tpu_torch.parallel.mesh.
+GroupReduce`` across processes): called on a count it sums it over the
+ranks, and ``sum``, ``min``, ``max`` and ``gather`` reduce a tensor. Each
+loss then gives this rank's share of the whole batch's loss, and the
+shares of the ranks add up to it:
+
+- ``rc``, ``rcw``, ``reg``, ``kl``: the rank's sum over the whole batch's
+  count;
+- ``ssim``: the joint min and max are the whole batch's, and the mean of
+  the SSIM map is a sum over the whole batch's count;
+- ``var``: the rank's sum of per-(sequence, dim) variances over the whole
+  batch's count, gated by the whole batch's mean;
+- ``mmd``: computed on the whole batch's gathered z, divided by the number
+  of ranks;
+- ``hp``: the max over the ranks, divided by their number; its directions
+  are drawn for the whole batch (``shard``) and cut to the rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def no_reduce(x: torch.Tensor) -> torch.Tensor:
-    return x
+class OneRank:
+    """The reductions of a loss over one rank: each is the identity."""
+
+    size = 1
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        return count
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    min = max = gather = sum
+
+
+no_reduce = OneRank()
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, total=no_reduce) -> torch.Tensor:
@@ -78,10 +103,11 @@ def _gaussian_window(size: int, sigma: float) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-def ssim_2d(a: torch.Tensor, b: torch.Tensor, window_size: int = 3, val_range: float = 1.0,
-            sigma: float = 0.5) -> torch.Tensor:
-    """2-D SSIM over (B, H, W) maps with a Gaussian window (ssim_loss.py:7-37:
-    sigma 0.5, C1 = (0.01 v)^2, C2 = (0.03 v)^2), zero padded."""
+def ssim_map(a: torch.Tensor, b: torch.Tensor, window_size: int = 3, val_range: float = 1.0,
+             sigma: float = 0.5) -> torch.Tensor:
+    """The 2-D SSIM map of (B, H, W) maps with a Gaussian window
+    (ssim_loss.py:7-37: sigma 0.5, C1 = (0.01 v)^2, C2 = (0.03 v)^2), zero
+    padded; its mean is the SSIM (the JAX package's ``ssim_2d``)."""
     win = torch.as_tensor(_gaussian_window(window_size, sigma), dtype=a.dtype,
                           device=a.device)[None, None]
     pad = window_size // 2
@@ -97,26 +123,29 @@ def ssim_2d(a: torch.Tensor, b: torch.Tensor, window_size: int = 3, val_range: f
     c2 = (0.03 * val_range) ** 2
     num = (2 * mu1 * mu2 + c1) * (2 * s12 + c2)
     den = (mu1 * mu1 + mu2 * mu2 + c1) * (s11 + s22 + c2)
-    return (num / den).mean()
+    return num / den
 
 
-def ssim_loss(out, x_delta, mask, **_):
+def ssim_loss(out, x_delta, mask, total=no_reduce, **_):
     """1 - SSIM over the (frames x dims) map after a joint min/max
     normalisation (losses.py:73-98 ssimnorm_loss, window 3)."""
-    lo = torch.minimum(x_delta.min(), out.min())
-    hi = torch.maximum(x_delta.max(), out.max())
+    lo = total.min(torch.minimum(x_delta.min(), out.min()))
+    hi = total.max(torch.maximum(x_delta.max(), out.max()))
     scale = (hi - lo).clamp_min(1e-8)
     a = (x_delta - lo) / scale
     b = (out - lo) / scale
-    return 1.0 - ssim_2d(a * mask[..., None], b * mask[..., None], window_size=3,
-                         val_range=1.0)
+    ratio = ssim_map(a * mask[..., None], b * mask[..., None], window_size=3, val_range=1.0)
+    return 1.0 / total.size - ratio.sum() / total(ratio.new_tensor(float(ratio.numel())))
 
 
-def var_loss(out, x_delta, mask, **_):
+def var_loss(out, x_delta, mask, total=no_reduce, **_):
     """The mean per-(sequence, dim) temporal variance of the output, zeroed
-    outside (0, 3) (losses.py:126-143 comput_var_loss)."""
-    v = out.var(dim=1, unbiased=True).mean()
-    return torch.where((v > 0) & (v < 3), v, torch.zeros_like(v))
+    when the whole batch's mean lies outside (0, 3) (losses.py:126-143
+    comput_var_loss)."""
+    v = out.var(dim=1, unbiased=True)
+    share = v.sum() / total(v.new_tensor(float(v.numel())))
+    whole = total.sum(share.detach())
+    return torch.where((whole > 0) & (whole < 3), share, torch.zeros_like(share))
 
 
 # ------------------------------------------------------------------- mmd
@@ -127,39 +156,43 @@ def _mmd_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def mmd_loss(z, noise: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None, **_):
+             generator: Optional[torch.Generator] = None, total=no_reduce, **_):
     """Gaussian-kernel MMD between q(z) and N(0, 1) samples (mmd.py:17-22),
-    z flattened to (N, latent) as the reference's batch['z']. ``noise``
-    (N, latent) are the N(0, 1) samples, drawn from ``generator`` unless
-    given."""
-    zf = z.reshape(-1, z.shape[-1])
+    z flattened to (N, latent) as the reference's batch['z'] (the whole
+    batch's, gathered over the ranks). ``noise`` (N, latent) are the N(0, 1)
+    samples, drawn from ``generator`` unless given."""
+    zf = total.gather(z.reshape(-1, z.shape[-1]))
     true = (torch.randn(zf.shape, generator=generator, device=zf.device, dtype=zf.dtype)
             if noise is None else torch.as_tensor(noise, dtype=zf.dtype, device=zf.device))
     return (_mmd_kernel(true, true).mean() + _mmd_kernel(zf, zf).mean()
-            - 2.0 * _mmd_kernel(true, zf).mean())
+            - 2.0 * _mmd_kernel(true, zf).mean()) / total.size
 
 
 # ------------------------------------------------- hessian penalty (hp)
 
 def hessian_penalty(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, k: int = 2,
                     epsilon: float = 0.1, dzs: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, total=no_reduce,
+                    shard: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
     """The Hessian penalty (Peebles et al. 2020, arXiv 2008.10599) of ``fn``'s
     output with respect to ``x``: the variance of central second
     differences along k Rademacher directions, max-reduced
     (hessian_penalty.py defaults k=2, epsilon=0.1, reduction=max). ``dzs``
     (k, *x.shape) are the directions times epsilon, drawn from ``generator``
-    unless given. The reference applies it to the encoder's latent
-    (losses.py:62-64 through model.return_latent)."""
+    unless given; with ``shard`` = (n, rows), x holds the rows ``rows`` of a
+    batch of n, and the directions are drawn for the whole batch and cut.
+    The reference applies it to the encoder's latent (losses.py:62-64
+    through model.return_latent)."""
     if dzs is None:
-        signs = torch.randint(0, 2, (k,) + tuple(x.shape), generator=generator,
-                              device=x.device).to(x.dtype)
+        n, rows = shard or (x.shape[0], slice(None))
+        signs = torch.randint(0, 2, (k, n) + tuple(x.shape[1:]), generator=generator,
+                              device=x.device)[:, rows].to(x.dtype)
         dzs = epsilon * (2.0 * signs - 1.0)
     dzs = torch.as_tensor(dzs, dtype=x.dtype, device=x.device)
     center = fn(x)
     seconds = torch.stack([(fn(x + dz) - 2.0 * center + fn(x - dz)) / epsilon ** 2
                            for dz in dzs])
-    return seconds.var(dim=0, unbiased=True).max()
+    return total.max(seconds.var(dim=0, unbiased=True).max()) / total.size
 
 
 _matching_: Dict[str, Callable] = {

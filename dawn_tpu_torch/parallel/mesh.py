@@ -13,7 +13,11 @@ rank receives the whole inputs and slices its own part (:meth:`Mesh.rows`,
 :meth:`Mesh.frames`); :func:`gather_frames` collects a seq-sharded output
 back into the whole video. :func:`all_reduce_sum` is differentiable (its
 backward all-reduces the gradient), so a loss whose forward sums over
-ranks gets the gradient of the global sum.
+ranks gets the gradient of the global sum; so are :func:`all_reduce_extreme`
+(a MIN or MAX whose gradient goes to the one rank that holds the extreme)
+and :func:`all_gather_grad`, under the same rule: each rank backpropagates
+its own share of a global loss. :class:`GroupReduce` bundles them for the
+data-parallel losses of :mod:`dawn_tpu_torch.models.pbnet.losses`.
 """
 
 from __future__ import annotations
@@ -134,6 +138,92 @@ def all_reduce_sum(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch
     if group is None:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+class _AllReduceExtreme(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        y = x.detach().clone()
+        dist.all_reduce(y, op=op, group=group)
+        # the lowest rank that holds the extreme takes its gradient
+        rank, size = dist.get_rank(group), dist.get_world_size(group)
+        owner = torch.where(x.detach() == y, rank, size).to(torch.int64)
+        dist.all_reduce(owner, op=dist.ReduceOp.MIN, group=group)
+        ctx.group, ctx.mine = group, (owner == rank).to(x.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g * ctx.mine, None, None
+
+
+def all_reduce_extreme(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+                       op: str) -> torch.Tensor:
+    """The 'min' or 'max' of the scalar ``x`` over the ranks of ``group`` (x
+    itself for None). Differentiable: the backward all-reduces the gradient
+    (each rank backpropagates its share of a global loss) and hands it to
+    the lowest rank whose ``x`` is the extreme; the others get zero."""
+    if group is None:
+        return x
+    return _AllReduceExtreme.apply(x, group, {"min": dist.ReduceOp.MIN,
+                                              "max": dist.ReduceOp.MAX}[op])
+
+
+class _AllGatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.rank, ctx.size = dist.get_rank(group), dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(ctx.size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.chunk(ctx.size, dim=ctx.dim)[ctx.rank], None, None
+
+
+def all_gather_grad(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+                    dim: int) -> torch.Tensor:
+    """:func:`all_gather_cat` with a gradient: the backward all-reduces the
+    whole tensor's gradient (each rank backpropagates its share of a global
+    loss) and keeps this rank's part. A term computed alike on every rank
+    from the gathered tensor must therefore enter each rank's loss divided
+    by the group's size."""
+    if group is None:
+        return x
+    return _AllGatherGrad.apply(x, group, dim)
+
+
+class GroupReduce:
+    """The reductions of a loss term over the ranks of ``group`` (see
+    :mod:`dawn_tpu_torch.models.pbnet.losses`): called on a count it gives
+    the count over the ranks; ``sum``, ``min``, ``max`` and ``gather``
+    (along dim 0, in rank order) are differentiable; ``size`` is the number
+    of ranks."""
+
+    def __init__(self, group: dist.ProcessGroup):
+        self.group = group
+        self.size = dist.get_world_size(group)
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(count, self.group)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(x, self.group)
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_extreme(x, self.group, "min")
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_extreme(x, self.group, "max")
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return all_gather_grad(x, self.group, 0)
 
 
 def all_gather_cat(x: torch.Tensor, group: Optional[dist.ProcessGroup],

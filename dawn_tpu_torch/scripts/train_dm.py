@@ -29,8 +29,25 @@ lengths drawn per step and snapped to the config's length buckets,
 checkpoints ``<workdir>/ckpt/step_<step>.pt`` (UNet, optimizer, schedule,
 EMA, step; ``torch.save``) every ``--ckpt-every`` steps and at the end,
 resumed from the newest with ``--restore``. ``--device cpu`` runs on the CPU;
-the card is the default. ``--teacher-cache``, ``--prefetch`` and
-``--sample-every`` are not ported yet and raise.
+the card is the default. The yaml's ``remat: dots|full`` recomputes the
+UNet's forward in the backward (``DMTrainConfig.remat``).
+
+``--teacher-cache DIR`` keeps the frozen teacher's tensors of each (video,
+start) clip on disk (:class:`dawn_tpu_torch.train.data.TeacherCache`, f32 or
+with ``--teacher-cache-f16`` f16) and trains on them, so a clip seen before
+skips the teacher pass; clip starts then lie on a grid of
+``--teacher-cache-stride`` frames (default ``max(1, num_frames // 2)``) so
+that clips recur, color jitter is skipped (it acts only through the
+teacher), and ``metrics.jsonl`` gains ``teacher_cache_hit_rate``. On several
+ranks each runs the teacher on its share of a step's misses and all read the
+step's entries back from the shared directory
+(``TeacherCache.convert_batch_shared``). ``--prefetch``
+assembles batches on a worker thread with the C++ chunk reader (built with
+g++ at first use) and copies them to the card there, ahead of the step.
+``--sample-every N`` writes the training monitor's panels
+(``DMTrainer.snapshot``, its draws seeded with step + 1 as in the JAX
+script) every N steps as
+``<workdir>/imgshots/step_<step:07d>.png``.
 """
 
 import argparse
@@ -40,14 +57,11 @@ import os
 import time
 from typing import List, Optional
 
-_NOT_PORTED = {
-    "teacher_cache": "--teacher-cache (TeacherCache, ROADMAP queue 1 item 12)",
-    "prefetch": "--prefetch (the C++ chunk reader and batches_prefetched, "
-                "ROADMAP queue 1 item 12)",
-    "sample_every": "--sample-every (DMTrainer.snapshot and its LFG decode, "
-                    "ROADMAP queue 1 item 12)",
-}
 _TIME_KEYS = ("video", "hubert", "pose", "blink", "mouth_lmk")
+# the cached teacher's per-frame rows are the diffused frames (stage 2: frame
+# 0 already split off), so a stage-2 length L cuts them to :L and the raw
+# modalities to :L+1
+_TEACHER_TIME_KEYS = ("real_vid_grid", "real_vid_conf")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -69,21 +83,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--ckpt-every", type=int, default=500)
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the card)")
-    ap.add_argument("--sample-every", type=int, default=0, help="not ported yet")
+    ap.add_argument("--sample-every", type=int, default=1000,
+                    help="write the monitor's PNG panels every N steps (0: never)")
     ap.add_argument("--tensorboard", action="store_true",
                     help="also write TensorBoard event files to <workdir>/tb")
-    ap.add_argument("--teacher-cache", default=None, metavar="DIR", help="not ported yet")
-    ap.add_argument("--teacher-cache-stride", type=int, default=None, help="not ported yet")
-    ap.add_argument("--teacher-cache-f16", action="store_true", help="not ported yet")
-    ap.add_argument("--prefetch", action="store_true", help="not ported yet")
-    args = ap.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"{what} is not ported to dawn_tpu_torch yet")
-    if args.teacher_cache_stride is not None or args.teacher_cache_f16:
-        raise NotImplementedError(f"{_NOT_PORTED['teacher_cache']} is not ported to "
-                                  "dawn_tpu_torch yet")
-    return args
+    ap.add_argument("--teacher-cache", default=None, metavar="DIR",
+                    help="cache the frozen teacher's tensors per (video, start) clip in DIR "
+                         "and reuse them (clip starts on a grid, no color jitter)")
+    ap.add_argument("--teacher-cache-stride", type=int, default=None,
+                    help="the clip-start grid of the cache (default num_frames // 2)")
+    ap.add_argument("--teacher-cache-f16", action="store_true",
+                    help="store the cache's entries as float16")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="read and copy batches to the card on a worker thread, ahead of "
+                         "the step (the C++ chunk reader)")
+    return ap.parse_args(argv)
 
 
 def check_seq_frames(frame_counts: List[int], seq: int, window: int) -> None:
@@ -110,14 +124,16 @@ def main(argv: Optional[List[str]] = None):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
     import yaml
 
     from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
     from dawn_tpu_torch.parallel.distributed import (maybe_initialize_distributed,
                                                      process_count)
     from dawn_tpu_torch.parallel.mesh import make_mesh
-    from dawn_tpu_torch.train.data import HDTFVideoDataset
+    from dawn_tpu_torch.train.data import HDTFVideoDataset, TeacherCache
     from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+    from dawn_tpu_torch.utils.misc import save_snapshot_grid
     from dawn_tpu_torch.utils.tensorboard import EventWriter
 
     maybe_initialize_distributed(device=args.device)
@@ -164,12 +180,22 @@ def main(argv: Optional[List[str]] = None):
         num_frames = cfg_yaml.get("num_frames", 20)
     check_seq_frames(s2_buckets if args.stage == 2 else [num_frames], mesh.shape["seq"],
                      cfg.win_width)
+    stride = (args.teacher_cache_stride or max(1, num_frames // 2)) if args.teacher_cache \
+        else None
     dataset = HDTFVideoDataset(args.frames_dir, args.hubert_dir, args.pose_dir, args.eye_dir,
-                               args.length_dict, lmk_dir=args.lmk_dir, num_frames=num_frames)
+                               args.length_dict, lmk_dir=args.lmk_dir, num_frames=num_frames,
+                               start_stride=stride)
     if lead:
         print(f"dataset: {len(dataset)} videos, {num_frames} frames/clip"
               + (f", stage-2 buckets {s2_buckets}" if args.stage == 2 else "")
               + f"; device {trainer.device}; mesh {mesh.shape}")
+    cache = None
+    if args.teacher_cache:
+        cache = TeacherCache(args.teacher_cache,
+                             dtype=np.float16 if args.teacher_cache_f16 else np.float32)
+        if lead:
+            print(f"teacher cache: {args.teacher_cache} (start stride {stride}, "
+                  f"{'f16' if args.teacher_cache_f16 else 'f32'} entries; no color jitter)")
     step_fn = trainer.make_sharded_step(mesh) if mesh.distributed else trainer.train_step
 
     start = 0
@@ -196,13 +222,27 @@ def main(argv: Optional[List[str]] = None):
     rng_len = np.random.RandomState(seed)
     t0 = time.time()
     tb = EventWriter(os.path.join(args.workdir, "tb")) if args.tensorboard and lead else None
+    with_meta = cache is not None
+    batch_iter = (dataset.batches_prefetched(bs, total - start, with_meta=with_meta,
+                                             device=trainer.device) if args.prefetch
+                  else dataset.batches(bs, total - start, with_meta=with_meta))
     with open(os.path.join(args.workdir, "metrics.jsonl") if lead else os.devnull,
               "a") as metrics_log:
-        for step, batch in enumerate(dataset.batches(bs, total - start), start):
+        for step, item in enumerate(batch_iter, start):
+            if cache is not None and mesh.distributed:
+                raw, meta = item
+                batch = cache.convert_batch_shared(raw, meta, trainer.teacher_precompute,
+                                                   mesh.rank, mesh.size, dist.barrier)
+            elif cache is not None:
+                raw, meta = item
+                batch = cache.convert_batch(raw, meta, trainer.teacher_precompute)
+            else:
+                raw = batch = item
             if args.stage == 2:
                 want = rng_len.randint(s2_min, s2_max + 1)
                 length = min(s2_buckets, key=lambda q: abs(q - want))
-                batch = {k: (v[:, : length + 1] if k in _TIME_KEYS else v)
+                batch = {k: (v[:, : length + 1] if k in _TIME_KEYS else
+                             v[:, :length] if k in _TEACHER_TIME_KEYS else v)
                          for k, v in batch.items()}
             load_t = time.time() - t0
             if load_t > 1.0 and lead:
@@ -210,7 +250,9 @@ def main(argv: Optional[List[str]] = None):
             metrics = step_fn(batch)
             if step % args.log_every == 0 and lead:
                 metrics.update(step=step, wall=time.time() - t0,
-                               frames=int(batch["video"].shape[1]))
+                               frames=int(batch["hubert"].shape[1]))
+                if cache is not None and cache.hit_rate is not None:
+                    metrics["teacher_cache_hit_rate"] = round(cache.hit_rate, 4)
                 metrics_log.write(json.dumps(metrics) + "\n")
                 metrics_log.flush()
                 if tb is not None:
@@ -220,6 +262,12 @@ def main(argv: Optional[List[str]] = None):
                                                   ("total", "loss", "floss", "mouth_loss")))
             if step > start and step % args.ckpt_every == 0:
                 save(step)
+            if args.sample_every and step > start and step % args.sample_every == 0 and lead:
+                # the raw batch: a cached one carries no video to decode
+                snap_dir = os.path.join(args.workdir, "imgshots")
+                os.makedirs(snap_dir, exist_ok=True)
+                save_snapshot_grid(os.path.join(snap_dir, f"step_{step:07d}.png"),
+                                   trainer.snapshot(raw, seed=step + 1))
             t0 = time.time()
     if tb is not None:
         tb.close()

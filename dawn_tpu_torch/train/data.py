@@ -1,12 +1,18 @@
-"""The training datasets: chunked-npy HDTF clips, read with numpy.
+"""The training datasets: chunked-npy HDTF clips.
 
-Port of ``dawn_tpu/train/data.py:23-224, 339-399, 542-569`` on its
-``np.load`` path: one subdirectory per video and modality (frames, hubert,
-pose, eye, optional lmk) full of 25-frame ``chunk_%04d.npy`` blocks, and
-``length_dict.pkl`` mapping each video to its frame count; the reference's
-held-out test split and bad videos are left out of training.
+Port of ``dawn_tpu/train/data.py:23-399, 542-569``: one subdirectory per
+video and modality (frames, hubert, pose, eye, optional lmk) full of
+25-frame ``chunk_%04d.npy`` blocks, and ``length_dict.pkl`` mapping each
+video to its frame count; the reference's held-out test split and bad
+videos are left out of training.
 
-- :class:`HDTFVideoDataset`: the DM's clips;
+- :class:`HDTFVideoDataset`: the DM's clips, read by ``np.load`` or by the
+  threaded C++ reader (:class:`NativeChunkReader`); clip starts optionally
+  on a grid (``start_stride``) so that clips recur across epochs;
+  :meth:`HDTFVideoDataset.batches_prefetched` assembles batches on a
+  worker thread, ahead of the step, and copies them to the card there;
+- :class:`TeacherCache`: the frozen teacher's tensors per (video, start)
+  clip on disk, in the JAX package's ``.npz`` layout and file names;
 - :class:`PBnetPoseDataset`: the PBnet's (hubert, normalised pose, eye)
   sequences, held in memory; :func:`collate_padded` and
   :func:`lengths_to_mask` for ragged batches;
@@ -16,8 +22,7 @@ held-out test split and bad videos are left out of training.
 
 Clips, pairs and batches are drawn from a ``np.random.RandomState``, the
 same stream as the JAX package's, so one seed gives the same batches in
-both. The threaded C++ chunk reader, the prefetching batch iterator and the
-teacher cache are not ported yet.
+both, whichever reader reads them.
 """
 
 from __future__ import annotations
@@ -25,9 +30,10 @@ from __future__ import annotations
 import glob
 import os
 import pickle
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 BLOCK = 25
 
@@ -52,19 +58,58 @@ HDTF_BAD_VIDEOS = ["WDA_DanKildee_000", "WDA_PatrickLeahy1_000",
                    "WRA_KristiNoem2_000", "RD_Radio39_000"]
 
 
-def read_block_range(video_dir: str, start: int, end: int) -> np.ndarray:
-    """Frames [start, end) across the chunk_%04d.npy blocks of one video.
+def read_block_range(video_dir: str, start: int, end: int,
+                     reader: Optional["NativeChunkReader"] = None) -> np.ndarray:
+    """Frames [start, end) across the chunk_%04d.npy blocks of one video,
+    read by ``reader`` (all blocks at once, in parallel) or by ``np.load``.
     The last block index comes from end - 1, so a range ending on a block
     boundary does not touch the next chunk, which may not exist."""
     if end <= start:
         raise ValueError(f"empty frame range [{start}, {end})")
     b0, b1 = start // BLOCK, (end - 1) // BLOCK
     p0, p1 = start - b0 * BLOCK, end - b1 * BLOCK
-    arrs = [np.load(os.path.join(video_dir, f"chunk_{i:04d}.npy"))
-            for i in range(b0, b1 + 1)]
+    paths = [os.path.join(video_dir, f"chunk_{i:04d}.npy") for i in range(b0, b1 + 1)]
+    arrs = reader.read_many(paths) if reader is not None else [np.load(p) for p in paths]
     if len(arrs) == 1:
         return arrs[0][p0:p1]
     return np.concatenate([arrs[0][p0:]] + arrs[1:-1] + [arrs[-1][:p1]])
+
+
+class NativeChunkReader:
+    """Parallel .npy reads through the C++ reader
+    (:class:`dawn_tpu_torch.runtime.native.NpyPrefetcher`): ``read_many``
+    submits every path at once, so the reader threads overlap the file
+    reads, and returns the arrays in order. The small headers are parsed
+    here; the threads read the payloads. Raises when the library cannot be
+    built."""
+
+    def __init__(self, n_threads: int = 4, queue_cap: int = 32):
+        from dawn_tpu_torch.runtime.native import NpyPrefetcher
+        self._pf = NpyPrefetcher(n_threads, queue_cap)
+
+    @staticmethod
+    def _header(path: str):
+        """(shape, fortran_order, dtype) of a .npy file."""
+        with open(path, "rb") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                return np.lib.format.read_array_header_1_0(f)
+            return np.lib.format.read_array_header_2_0(f)
+
+    def read_many(self, paths: Sequence[str]) -> List[np.ndarray]:
+        metas = [self._header(p) for p in paths]
+        for i, p in enumerate(paths):
+            self._pf.submit(p, i)
+        cap = max(os.path.getsize(p) for p in paths)
+        out: List[Optional[np.ndarray]] = [None] * len(paths)
+        for _ in paths:
+            buf, tag = self._pf.next(cap)
+            shape, fortran, dtype = metas[tag]
+            out[tag] = buf.view(dtype).reshape(shape, order="F" if fortran else "C")
+        return out  # type: ignore[return-value]
+
+    def close(self) -> None:
+        self._pf.close()
 
 
 def _pad_frames(a: np.ndarray, n: int) -> np.ndarray:
@@ -75,16 +120,20 @@ def _pad_frames(a: np.ndarray, n: int) -> np.ndarray:
 
 
 class HDTFVideoDataset:
-    """DM training clips over per-modality chunk directories."""
+    """DM training clips over per-modality chunk directories. With
+    ``start_stride`` a clip starts on a multiple of it, so that the same
+    (video, start) clips recur across epochs (the teacher cache's keys);
+    without, anywhere (the reference's uniform start)."""
 
     def __init__(self, frames_dir: str, hubert_dir: str, pose_dir: str, eye_dir: str,
                  length_dict_path: str, lmk_dir: Optional[str] = None,
-                 num_frames: int = 20, seed: int = 0):
+                 num_frames: int = 20, seed: int = 0, start_stride: Optional[int] = None):
         with open(length_dict_path, "rb") as f:
             self.len_dict = pickle.load(f)
         self.dirs = dict(frames=frames_dir, hubert=hubert_dir, pose=pose_dir,
                          eye=eye_dir, lmk=lmk_dir)
         self.num_frames = num_frames
+        self.start_stride = start_stride
         self.rng = np.random.RandomState(seed)
         self.videos = [v for v in sorted(os.listdir(frames_dir))
                        if v not in HDTF_TEST_SPLIT and v not in HDTF_BAD_VIDEOS]
@@ -92,22 +141,32 @@ class HDTFVideoDataset:
     def __len__(self) -> int:
         return len(self.videos)
 
-    def sample(self, idx: int) -> Dict[str, np.ndarray]:
+    def sample(self, idx: int, reader: Optional[NativeChunkReader] = None
+               ) -> Dict[str, np.ndarray]:
         """One clip of video ``idx``: 'video' (T, H, W, 3) in its stored dtype
         (0-255), 'hubert' (T, 1024), 'pose' (T, 7), 'blink' (T, 2), 'bbox'
-        (6,), with lmk 'mouth_lmk' (T, 19, 2)."""
+        (6,), with lmk 'mouth_lmk' (T, 19, 2); and the clip's 'name' and
+        'start'."""
         name = self.videos[idx]
         total = self.len_dict[name]
         nf = min(self.num_frames, total)
-        start = 0 if total <= nf else int(self.rng.randint(total - nf))
+        if total <= nf:
+            start = 0
+        elif self.start_stride:
+            start = int(self.rng.randint((total - nf) // self.start_stride + 1)) \
+                * self.start_stride
+        else:
+            start = int(self.rng.randint(total - nf))
 
         def block(kind):
-            return read_block_range(os.path.join(self.dirs[kind], name), start, start + nf)
+            return read_block_range(os.path.join(self.dirs[kind], name), start, start + nf,
+                                    reader)
 
         out = {"video": block("frames"),
                "hubert": block("hubert").astype(np.float32),
                "pose": block("pose").astype(np.float32),
-               "blink": block("eye").astype(np.float32)[:, :2]}
+               "blink": block("eye").astype(np.float32)[:, :2],
+               "name": name, "start": start}
         if self.dirs["lmk"]:
             lmk = block("lmk").astype(np.float32)                 # (T, 68, 2)
             out["mouth_lmk"] = lmk[:, 48:67]                      # the mouth ring
@@ -121,15 +180,201 @@ class HDTFVideoDataset:
             out["bbox"] = np.array([0, w - 1, 0, h - 1, h, w], np.float32)
         return out
 
-    def batches(self, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+    def batches(self, batch_size: int, steps: int, reader: Optional[NativeChunkReader] = None,
+                with_meta: bool = False) -> Iterator[Dict[str, np.ndarray]]:
         """``steps`` batches of clips of random videos, fixed shapes: clips
-        shorter than num_frames are edge-padded."""
+        shorter than num_frames are edge-padded. With ``with_meta`` each item
+        is (batch, [(name, start), ...]), the clips' teacher-cache keys."""
         for _ in range(steps):
             idxs = self.rng.randint(len(self.videos), size=batch_size)
-            samples = [self.sample(int(i)) for i in idxs]
-            yield {k: np.stack([s[k] if k == "bbox" else _pad_frames(s[k], self.num_frames)
-                                for s in samples])
-                   for k in samples[0]}
+            samples = [self.sample(int(i), reader) for i in idxs]
+            batch = {k: np.stack([s[k] if k == "bbox" else _pad_frames(s[k], self.num_frames)
+                                  for s in samples])
+                     for k in samples[0] if k not in ("name", "start")}
+            yield (batch, [(s["name"], s["start"]) for s in samples]) if with_meta else batch
+
+    def batches_prefetched(self, batch_size: int, steps: int, n_threads: int = 4,
+                           depth: int = 2, with_meta: bool = False,
+                           device=None) -> Iterator[Dict[str, Any]]:
+        """:meth:`batches` assembled ahead on a worker thread, its chunk files
+        read in parallel by :class:`NativeChunkReader`, into a queue of
+        ``depth`` batches, while the caller runs its step: the same batches
+        (the same ``self.rng`` stream, the same assembly). With a CUDA
+        ``device`` the worker also copies each batch there (the JAX
+        package's worker-side ``transform``), from pinned memory on a stream
+        of its own, and records an event; the consumer's stream waits on
+        that event and the tensors are marked as used by it
+        (``record_stream``) before the batch is handed over, so the caching
+        allocator cannot hand their memory out early. A worker's exception
+        is raised here, on the consumer's side. Raises when the reader
+        cannot be built."""
+        import queue
+        import threading
+
+        reader = NativeChunkReader(n_threads)
+        copy = _CudaCopy(device) if device is not None and \
+            torch.device(device).type == "cuda" else None
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+
+        def offer(item) -> bool:
+            """Queue ``item`` unless the consumer has gone; False if it has."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for item in self.batches(batch_size, steps, reader, with_meta):
+                    batch, meta = item if with_meta else (item, None)
+                    if copy is not None:
+                        batch = copy.put(batch)
+                    if not offer((batch, meta)):
+                        return
+                offer(None)
+            except BaseException as e:          # raised on the consumer's side
+                offer(e)
+            finally:
+                reader.close()
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                batch, meta = item
+                if copy is not None:
+                    batch = copy.take(batch)
+                yield (batch, meta) if with_meta else batch
+        finally:
+            stop.set()
+            thread.join()
+
+
+class _CudaCopy:
+    """Host-to-card copies of batches on a side stream: ``put`` runs on the
+    producing thread, ``take`` on the consuming one."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+
+    def put(self, batch: Dict[str, Any]):
+        with torch.cuda.stream(self.stream):
+            out = {k: (v if isinstance(v, torch.Tensor) else
+                       torch.from_numpy(np.ascontiguousarray(v))).pin_memory()
+                   .to(self.device, non_blocking=True) for k, v in batch.items()}
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return out, event
+
+    def take(self, item) -> Dict[str, torch.Tensor]:
+        out, event = item
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for v in out.values():
+            v.record_stream(stream)
+        return out
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+class TeacherCache:
+    """Disk cache of the frozen teacher's tensors ('real_vid_grid',
+    'real_vid_conf', 'ref_img_fea'), keyed (video id, clip start), one
+    ``<name>__<start:06d>.npz`` per clip: the JAX package's layout and file
+    names, so either package reads the other's cache. The DM loss reads the
+    video only through the teacher, so a recurring clip
+    (``HDTFVideoDataset(start_stride=...)``) skips the teacher pass. Entries
+    are stored in ``dtype`` (float16 halves the disk at about 5e-4 on [-1,
+    1] tensors) and read back as float32; writes go to a temporary file
+    first and are renamed into place (``os.replace``), so a reader never
+    sees a torn entry."""
+
+    def __init__(self, root: str, dtype=np.float32):
+        os.makedirs(root, exist_ok=True)
+        self.root = root
+        self.dtype = dtype
+        self.hits = 0
+        self.misses = 0
+
+    def _path(self, name: str, start: int) -> str:
+        return os.path.join(self.root, f"{name}__{start:06d}.npz")
+
+    def get(self, name: str, start: int) -> Optional[Dict[str, np.ndarray]]:
+        path = self._path(name, start)
+        if not os.path.exists(path):
+            return None
+        with np.load(path) as z:
+            return {k: z[k].astype(np.float32) for k in z.files}
+
+    def put(self, name: str, start: int, entry: Dict[str, Any]) -> None:
+        path = self._path(name, start)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **{k: _numpy(v).astype(self.dtype) for k, v in entry.items()})
+        os.replace(tmp, path)
+
+    @property
+    def hit_rate(self) -> Optional[float]:
+        seen = self.hits + self.misses
+        return self.hits / seen if seen else None
+
+    def convert_batch(self, batch: Dict[str, Any], meta, compute_fn) -> Dict[str, Any]:
+        """The cached-teacher batch of a raw one: 'video' replaced by the
+        teacher tensors. ``compute_fn(video_255) -> {key: (B, ...)}`` runs the
+        teacher for a batch with any miss, and every miss is stored, so a
+        later epoch hits."""
+        entries = [self.get(n, s) for n, s in meta]
+        if any(e is None for e in entries):
+            teacher = {k: _numpy(v) for k, v in compute_fn(batch["video"]).items()}
+            for i, (n, s) in enumerate(meta):
+                if entries[i] is None:
+                    self.misses += 1
+                    self.put(n, s, {k: v[i] for k, v in teacher.items()})
+                else:
+                    self.hits += 1
+        else:
+            self.hits += len(entries)
+            teacher = {k: np.stack([e[k] for e in entries]) for k in entries[0]}
+        out = {k: v for k, v in batch.items() if k != "video"}
+        out.update(teacher)
+        return out
+
+    def convert_batch_shared(self, batch: Dict[str, Any], meta, compute_fn, rank: int,
+                             world: int, barrier) -> Dict[str, Any]:
+        """:meth:`convert_batch` for ``world`` processes of one machine that
+        read the same global batch and share the cache's directory.
+        ``barrier()`` blocks until every process has reached it. Each process
+        runs the teacher only on its share of the misses (every ``world``-th,
+        from its ``rank``) and stores them. Then every process reads the
+        whole batch back from disk, in the cache's dtype, so the ranks of one
+        clip train on the same values whether it hit or missed. Every
+        process counts the same hits and misses."""
+        missing = [i for i, (n, s) in enumerate(meta) if not os.path.exists(self._path(n, s))]
+        barrier()                      # no process stores before all have looked
+        self.misses += len(missing)
+        self.hits += len(meta) - len(missing)
+        mine = missing[rank::world]
+        if mine:
+            teacher = {k: _numpy(v) for k, v in compute_fn(batch["video"][mine]).items()}
+            for j, i in enumerate(mine):
+                self.put(*meta[i], {k: v[j] for k, v in teacher.items()})
+        barrier()                      # every miss is stored
+        entries = [self.get(n, s) for n, s in meta]
+        out = {k: v for k, v in batch.items() if k != "video"}
+        out.update({k: np.stack([e[k] for e in entries]) for k in entries[0]})
+        return out
 
 
 # ------------------------------------------------------------------- PBnet

@@ -17,6 +17,15 @@ step whose gradient has a non-finite element changes neither the parameters
 nor the optimizer or schedule state, while the step count advances and the
 EMA still moves, as in the JAX package.
 
+With ``use_fft_floss`` the floss is the temporal-FFT one of the JAX
+package (``hf_loss_2`` of the predicted flow against the teacher's, along
+the frames). ``remat`` recomputes the UNet's forward inside the backward,
+as ``jax.checkpoint`` around the JAX loss's denoise call: 'full' recomputes
+all of it (non-reentrant ``torch.utils.checkpoint``), 'dots' keeps the
+outputs of the contractions (mm, addmm, bmm, baddbmm) and recomputes the
+rest, as ``dots_saveable`` does; K1 then runs again inside the backward.
+:meth:`DMTrainer.snapshot` gives the training monitor's panels.
+
 The UNet runs in attn_mode 'local' by default, so each of its temporal
 attentions goes through K1 forward and K2 backward
 (:class:`dawn_tpu_torch.ops.local_attention.LocalAttentionPacked`); the JAX
@@ -36,17 +45,21 @@ gradient of the global loss, and the update is the same on every rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from dawn_tpu_torch import resolve_device
 from dawn_tpu_torch.models.dm.diffusion import GaussianDiffusion
 from dawn_tpu_torch.models.dm.flow_diffusion import FaceLocEncoder, generate_bbox_mask
 from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
-from dawn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from dawn_tpu_torch.ops.fourier import hf_loss_2
+from dawn_tpu_torch.parallel.mesh import Mesh, all_gather_grad, all_reduce_sum
 from dawn_tpu_torch.train import to_device
 from dawn_tpu_torch.train.augment import color_jitter_video, jitter_factors
 
@@ -80,9 +93,9 @@ class DMTrainConfig:
     floss_weight: float = 0.15
     mouth_weight: float = 0.15
     null_cond_prob: float = 0.1
-    use_fft_floss: bool = False   # the temporal-FFT floss (hf_loss_2): not ported
+    use_fft_floss: bool = False   # floss = mean |rfft(teacher flow) - rfft(predicted flow)|
     color_jitter: bool = True
-    remat: str = "none"           # only 'none' is ported
+    remat: str = "none"           # 'none' | 'dots' | 'full': recompute the UNet in the backward
     compute_dtype: torch.dtype = torch.float32
     ema_decay: Optional[float] = 0.9999
 
@@ -140,6 +153,12 @@ class OptaxAdam(torch.optim.Optimizer):
             torch._foreach_add_(params, mu_hat, alpha=-group["lr"])
 
 
+# the contractions whose outputs remat 'dots' keeps (jax's dots_saveable)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT = ("none", "dots", "full")
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> Tuple[float, bool]:
     """optax.clip_by_global_norm in place: when the global norm is at least
     ``max_norm`` every gradient becomes (g / norm) * max_norm. Returns the
@@ -164,12 +183,8 @@ class DMTrainer:
     def __init__(self, config: DMTrainConfig = DMTrainConfig(),
                  flow_ae: Optional[FlowAE] = None,
                  unet_kw: Optional[Dict[str, Any]] = None, device=None, seed: int = 0):
-        if config.use_fft_floss:
-            raise NotImplementedError(
-                "use_fft_floss (hf_loss_2, dawn_tpu/ops/fourier.py) is not ported yet "
-                "(ROADMAP queue 1 item 15)")
-        if config.remat != "none":
-            raise NotImplementedError(f"remat={config.remat!r} is not ported yet (ROADMAP)")
+        if config.remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, not {config.remat!r}")
         self.config = config
         self.device = resolve_device(device)
         self.in_channels = 3 + config.fea_channels + 16
@@ -233,6 +248,21 @@ class DMTrainer:
         return self.flow_ae.teacher_outputs(ref_img, video)
 
     # ------------------------------------------------------------------- loss
+    def denoiser(self):
+        """The UNet call of the loss, ``(x, t, cond, drop) -> eps``, under the
+        config's ``remat``. The cond-drop mask comes in as an argument, so
+        the recomputed forward draws nothing; the RNG state is kept anyway."""
+        if self.config.remat == "none":
+            return self.unet
+        kw = dict(use_reentrant=False, preserve_rng_state=True)
+        if self.config.remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 list(DOT_OPS))
+
+        def denoise(x, t, cond, drop):
+            return checkpoint(self.unet, x, t, cond, drop, **kw)
+        return denoise
+
     def loss_fn(self, batch: Dict[str, torch.Tensor], draws: Optional[Dict[str, Any]] = None,
                 mesh: Optional[Mesh] = None):
         """Total loss and the metrics {loss, floss, mouth_loss, total}.
@@ -291,20 +321,18 @@ class DMTrainer:
         if mesh is not None:
             noise, drop = noise[:, frames], drop[:, frames]
         loss_elem, pred_x0, _ = self.diffusion.p_losses(
-            self.unet, x_start, tvec, fea_t, mask_t, cond, noise=noise, drop=drop,
+            self.denoiser(), x_start, tvec, fea_t, mask_t, cond, noise=noise, drop=drop,
             generator=self.generator, group=self.unet.seq.group())
 
         mmask = (None if mouth_lmk is None else
                  generate_mouth_mask(mouth_lmk[:, frames].float(), cfg.latent_size, cfg.img_size))
+        floss = self._floss(pred_x0, x_start, mesh)
         if mesh is None:
             eps_loss = loss_elem.mean()
-            floss = (pred_x0 - x_start).square().mean()
             if mmask is not None:
                 mouth_loss = (loss_elem * mmask).sum() / mmask.sum().clamp_min(1.0)
         else:
-            count = loss_elem.numel() * mesh.size
-            eps_loss = loss_elem.sum() / count
-            floss = (pred_x0 - x_start).square().sum() / count
+            eps_loss = loss_elem.sum() / (loss_elem.numel() * mesh.size)
             if mmask is not None:
                 mask_sum = all_reduce_sum(mmask.sum(), mesh.group(None))
                 mouth_loss = (loss_elem * mmask).sum() / mask_sum.clamp_min(1.0)
@@ -313,6 +341,22 @@ class DMTrainer:
         total = eps_loss + cfg.floss_weight * floss + cfg.mouth_weight * mouth_loss
         metrics = {"loss": eps_loss, "floss": floss, "mouth_loss": mouth_loss, "total": total}
         return total, metrics
+
+    def _floss(self, pred_x0: torch.Tensor, x_start: torch.Tensor,
+               mesh: Optional[Mesh]) -> torch.Tensor:
+        """The MSE of the thresholded x0 prediction, or with ``use_fft_floss``
+        the mean of ``hf_loss_2`` of its flow channels against the teacher's
+        along the frames. With ``mesh``, this rank's share of the global
+        mean: the FFT needs the whole clip, so a 'seq' rank gathers its
+        row's frames, and the row's 'seq' ranks share the row's sum."""
+        if self.config.use_fft_floss:
+            pred, real = pred_x0[..., :2], x_start[..., :2]
+            if mesh is not None:
+                pred, real = (all_gather_grad(v, mesh.group("seq"), 1) for v in (pred, real))
+            err = hf_loss_2(pred, real, dim=1)
+        else:
+            err = (pred_x0 - x_start).square()
+        return err.mean() if mesh is None else err.sum() / (err.numel() * mesh.size)
 
     def _whole_draws(self, batch, draws: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The step's draws at the whole batch's shapes: those given, the
@@ -392,6 +436,76 @@ class DMTrainer:
         def step(batch, draws=None):
             return self.train_step(batch, draws, mesh)
         return step
+
+    # ------------------------------------------------------------- monitoring
+    @torch.no_grad()
+    def snapshot(self, batch: Dict[str, Any], max_frames: int = 4,
+                 draws: Optional[Dict[str, Any]] = None,
+                 seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The training monitor's panels (``dawn_tpu/train/train_dm.py:329-394``)
+        for the first ``max_frames`` frames of the batch's first clip: the
+        teacher's reconstruction of the clip from its frame 0, one noisy
+        denoise at t = timesteps // 2 with the EMA weights (the parameters
+        without an EMA), and the real and the predicted flow both decoded by
+        the frozen generator from frame 0. ``draws`` may give 'noise' (1, T,
+        h, w, 3) and 'drop' (1, T); what it lacks is drawn from a generator
+        of its own seeded with ``seed`` (default: the trainer's step), never
+        from the training generator, whose state every rank of a sharded run
+        must keep alike while only one of them takes snapshots. Returns numpy
+        panels of T frames each:
+        'real_frames', 'real_decode', 'fake_decode' (T, H, W, 3) in [0, 1],
+        and the uint8 figures 'real_flow_fig', 'fake_flow_fig',
+        'real_conf_fig', 'fake_conf_fig' (T, S, S, 3) at the image size."""
+        from dawn_tpu_torch.utils.misc import conf2fig, flow2fig
+
+        cfg, draws = self.config, draws or {}
+        video = to_device(batch["video"][:1], self.device).float() / 255.0
+        t = min(max_frames, video.shape[1])
+        video = video[:, :t]
+        part = {k: to_device(batch[k][:1, :t], self.device).float()
+                for k in ("hubert", "pose", "blink")}
+        pose, blink = part["pose"][..., : cfg.pose_dim], part["blink"]
+        cond = torch.cat([part["hubert"], pose - pose[:, :1], blink - blink[:, :1]], dim=-1)
+        teacher = self.flow_ae.reconstruct_video(video[:, 0], video)
+        x_start = torch.cat([teacher["real_vid_grid"], teacher["real_vid_conf"] * 2 - 1], -1)
+        bbox = to_device(batch["bbox"][:1], self.device).float()
+        mask_emb = self.face_loc(generate_bbox_mask(bbox, cfg.img_size))
+        fea = teacher["ref_img_fea"]
+        fea_t = fea[:, None].expand((1, t) + fea.shape[1:])
+        mask_t = mask_emb[:, None].expand((1, t) + mask_emb.shape[1:])
+        noise, drop = (None if draws.get(k) is None
+                       else torch.as_tensor(np.asarray(draws[k]), device=self.device)
+                       for k in ("noise", "drop"))
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.step if seed is None else seed)
+        tvec = torch.full((1,), self.diffusion.timesteps // 2, device=self.device)
+        names = [n for n, _ in self.unet.named_parameters()]
+        weights = dict(zip(names, self.ema or [p for p in self.unet.parameters()]))
+
+        def denoise(x, tv, c, d):
+            return torch.func.functional_call(self.unet, weights, (x, tv, c, d))
+
+        _, pred_x0, _ = self.diffusion.p_losses(denoise, x_start, tvec, fea_t, mask_t, cond,
+                                                noise=noise, drop=drop, generator=gen)
+        fake_grid, fake_conf = pred_x0[..., :2], (pred_x0[..., 2:3] + 1) * 0.5
+        dec = self.flow_ae.generator.decode_with_flow(video[0, :1].repeat(t, 1, 1, 1),
+                                                      fake_grid[0], fake_conf[0])
+        real_grid = teacher["real_vid_grid"][0].cpu().numpy()
+        fake_grid = fake_grid[0].cpu().numpy()
+        real_conf = teacher["real_vid_conf"][0, ..., 0].cpu().numpy()
+        fake_conf = fake_conf[0, ..., 0].cpu().numpy()
+        ls, size = real_grid.shape[1], cfg.img_size
+        return {
+            "real_frames": video[0].cpu().numpy(),
+            "real_decode": teacher["real_out_vid"][0].cpu().numpy(),
+            "fake_decode": dec["prediction"].cpu().numpy(),
+            "real_flow_fig": np.stack([flow2fig(g, grid_size=ls, img_size=size)
+                                       for g in real_grid]),
+            "fake_flow_fig": np.stack([flow2fig(g, grid_size=ls, img_size=size)
+                                       for g in fake_grid]),
+            "real_conf_fig": np.stack([conf2fig(c, size) for c in real_conf]),
+            "fake_conf_fig": np.stack([conf2fig(c, size) for c in fake_conf]),
+        }
 
     # ------------------------------------------------------------- checkpoint
     def state_dict(self) -> Dict[str, Any]:

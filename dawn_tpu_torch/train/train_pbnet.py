@@ -18,11 +18,18 @@ count before its increment, and no guard against non-finite gradients.
 
 Across processes, :meth:`PBnetTrainer.make_sharded_step` is the JAX
 package's data-parallel step (``:137``): every rank receives the whole
-batch, draws the whole batch's z noise and dropout masks, keeps its rows,
-and contributes its share of each loss (its sums over the whole batch's
-counts); one all-reduce of the G and D gradients together then gives the
-gradients of the whole batch's losses. The trainer lives on the card unless the caller passes
-``device="cpu"``.
+batch, draws the whole batch's z noise, dropout masks, MMD samples and
+Hessian-penalty directions, keeps its rows, and contributes its share of
+each loss (see :mod:`dawn_tpu_torch.models.pbnet.losses`: sums over the
+whole batch's counts, the whole batch's extremes, its gathered z); one
+all-reduce of the G and D gradients together then gives the gradients of
+the whole batch's losses. The trainer lives on the card unless the caller
+passes ``device="cpu"``.
+
+The Hessian penalty ('hp') is taken of the encoder's posterior mean, with
+no dropout, as a function of the motion change against frame 0 (the
+reference's ``model.return_latent``; the JAX trainer passes no function
+for it).
 """
 
 from __future__ import annotations
@@ -37,14 +44,11 @@ from torch import nn
 from dawn_tpu_torch import resolve_device
 from dawn_tpu_torch.models.pbnet.cvae import CVAE, PBnetParams
 from dawn_tpu_torch.models.pbnet.losses import no_reduce
-from dawn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from dawn_tpu_torch.parallel.mesh import GroupReduce, Mesh, all_reduce_sum
 from dawn_tpu_torch.train import to_device
 from dawn_tpu_torch.train.train_dm import OptaxAdam, clip_by_global_norm_, cosine_decay
 
 WEIGHT_DECAY = 1e-4     # optax.adamw's default, which the JAX trainer keeps
-# the losses whose sharded form is not written (they need the whole batch's
-# extremes, variance or samples, not only its counts)
-_LOCAL_ONLY = ("ssim", "var", "mmd", "hp")
 
 
 class PatchGAN1D(nn.Module):
@@ -147,8 +151,12 @@ class PBnetTrainer:
         eps = draws.get("eps")
         out = self.model(x, batch["hubert"], mask, generator=self.generator,
                          eps=None if eps is None else to_device(eps, self.device), shard=shard)
+
+        def encode_fn(x_delta):
+            return self.model.encoder(x[:, :1] + x_delta, batch["hubert"].float(), mask)["mu"]
+
         mixed, losses = self.model.compute_loss(out, self._x_delta(x, mask), mask, epoch,
-                                                self.generator, draws, total=total)
+                                                self.generator, draws, encode_fn, total, shard)
         logits = self.disc(out["output"])
         g_gan = _bce_sum(logits, True) / total(logits.new_tensor(float(logits.numel())))
         losses["g_gan"] = g_gan
@@ -171,21 +179,20 @@ class PBnetTrainer:
         batch = self._batch(batch)
         total, group, shard = no_reduce, None, None
         if mesh is not None:
-            local = [k for k in self.model.hp.lambdas if k in _LOCAL_ONLY]
-            if local or mesh.shape["seq"] != 1:
+            if mesh.shape["seq"] != 1:
                 raise NotImplementedError(
-                    f"the sharded PBnet step takes the losses rc, rcw, reg and kl over 'data' "
-                    f"only (lambdas {dict(self.model.hp.lambdas)}, mesh {mesh.shape})")
+                    f"the sharded PBnet step shards over 'data' only (mesh {mesh.shape})")
             n = batch["x"].shape[0]
             shard = (n, mesh.rows(n))
             batch = {k: v[shard[1]] for k, v in batch.items()}
             draws = dict(draws or {})
             if "eps" in draws:
                 draws["eps"] = to_device(draws["eps"], self.device)[shard[1]]
+            if "hp" in draws:
+                draws["hp"] = to_device(draws["hp"], self.device)[:, shard[1]]
             group = mesh.group("data")
-
-            def total(count):
-                return all_reduce_sum(count, group)
+            if group is not None:
+                total = GroupReduce(group)
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
         g_params, d_params = list(self.model.parameters()), list(self.disc.parameters())
@@ -222,10 +229,13 @@ class PBnetTrainer:
         of the G and D gradients together gives the gradients of the whole
         batch's losses; clipping and the updates then run as in
         :meth:`train_step`, the same on every rank, and the metrics are
-        all-reduced. The losses ssim, var, mmd and hp raise here. The z noise
-        and the dropout masks are drawn for the whole batch by every rank's
-        generator (the same state on every rank) and each rank keeps its
-        rows, so the step draws what the unsharded step draws."""
+        all-reduced. Every loss of the registry is taken over the whole
+        batch. The z noise, the dropout masks, the MMD samples and the
+        Hessian-penalty directions are drawn for the whole batch by every
+        rank's generator (the same state on every rank) and each rank keeps
+        its rows, so the step draws what the unsharded step draws; given
+        draws are the whole batch's ('hp' (k, B, T, D), 'mmd' (B*T,
+        latent))."""
         def step(batch, epoch=0, draws=None):
             return self.train_step(batch, epoch, draws, mesh)
         return step

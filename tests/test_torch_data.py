@@ -7,8 +7,9 @@ the held-out split): the same seed gives the same batches, exactly, with and
 without landmarks. Then ``python -m dawn_tpu_torch.scripts.train_dm`` on
 the CPU at a tiny topology (yaml ``unet:``/``lfg:`` overrides, 32x32, 4
 frames): two stage-1 steps log finite metrics and save a checkpoint,
-``--restore`` resumes from it, stage 2 runs a step, and the flags that are
-not ported raise (``--tensorboard`` is ported: tests/test_torch_train_clis.py).
+``--restore`` resumes from it, stage 2 runs a step, and the teacher-cache,
+prefetch and snapshot flags parse to the JAX script's values (their runs:
+tests/test_torch_train_clis.py).
 """
 
 import json
@@ -100,6 +101,15 @@ def test_cli_trains_restores_and_runs_stage2(tree, tmp_path):
 @pytest.mark.parametrize("flag", ["--teacher-cache=x", "--prefetch", "--teacher-cache-stride=2",
                                   "--sample-every=10"])
 def test_cli_unported_flags_raise(tree, flag):
+    """These flags raised until they were ported (the name is kept); now each
+    parses to its value, and the others keep the JAX script's defaults."""
     _, flags = tree
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.parse_args([*flags, flag])
+    args = cli.parse_args([*flags, flag])
+    name, _, value = flag[2:].partition("=")
+    got = getattr(args, name.replace("-", "_"))
+    assert got == (True if not value else int(value) if value.isdigit() else value)
+    defaults = dict(teacher_cache=None, prefetch=False, teacher_cache_stride=None,
+                    sample_every=1000, teacher_cache_f16=False)
+    for k, v in defaults.items():
+        if k != name.replace("-", "_"):
+            assert getattr(args, k) == v, k

@@ -26,10 +26,23 @@ asserts against), so there the clip goes in whole, as the port's ranks take
 it: the step is the same function, its UNet the seq-sharded clone
 ``make_sharded_step`` installs, the diffused frames split over 'seq' inside.
 
+With ``remat: 'full'`` and the FFT floss, the 2-rank stage-1 step
+recomputes each rank's UNet forward inside the backward, its halo exchanges
+and all-reduces included (every rank recomputes alike, so the collectives
+pair up), and gathers the predicted and the teacher's flow over 'seq' for
+the FFT along the whole clip; it is held against the port's unsharded step
+with the same options and draws, at the tolerances above.
+
 The training CLI runs two steps in two processes started with the
 environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``): JAX's mesh rule gives 'seq' 2, only rank 0 writes
-``metrics.jsonl`` and checkpoints. And the CLI's frame check refuses, before
+``metrics.jsonl`` and checkpoints. It runs four steps more on each gloo rank
+with an f16 ``--teacher-cache`` and ``--sample-every 1``: rank 0's
+snapshots leave the ranks' generators bit-equal, the hit rate rises, and
+the run's losses equal, at rtol 1e-4, one process's on the entries the
+ranks stored (every rank reads a step's teacher tensors back from the
+cache, so the ranks of one clip train on the same f16 values). And the
+CLI's frame check refuses, before
 the first step, what JAX's ``seq_sharded_local_attention`` asserts at it:
 stage 1's 20 frames at window 20 over 2 'seq' ranks.
 """
@@ -64,6 +77,7 @@ from test_torch_util import random_tree, start_ranks, one_torch_thread  # noqa: 
 S, B, T, LR, DECAY = 32, 2, 8, 2e-4, 0.99
 UNET = dict(dim=8, dim_mults=(1, 2), win_width=2, attn_heads=2, attn_dim_head=8)
 CONFIG = dict(img_size=S, fea_channels=32, ema_decay=DECAY, lr=LR)
+REMAT_FFT = dict(remat="full", use_fft_floss=True)
 SPEC = {"video": P("data", "seq"), "hubert": P("data", "seq"), "pose": P("data", "seq"),
         "blink": P("data", "seq"), "bbox": P("data"), "mouth_lmk": P("data", "seq")}
 
@@ -84,8 +98,8 @@ def _tensors(tree):
     return torch.as_tensor(np.asarray(tree))
 
 
-def _start_cli(root):
-    """Two CPU processes of the training CLI with torchrun's environment."""
+def _cli_args(root):
+    """The training CLI's config and data flags on a tiny tree under ``root``."""
     import yaml
     flags = write_hdtf_tree(os.path.join(root, "data"), {"vid_000": 30, "vid_001": 26}, S,
                             seed=3)
@@ -94,6 +108,12 @@ def _start_cli(root):
                fea_channels=32, unet=dict(UNET), lfg={k[:-3]: v for k, v in TINY_LFG.items()})
     with open(os.path.join(root, "tiny.yaml"), "w") as f:
         yaml.safe_dump(cfg, f)
+    return [f"--config={os.path.join(root, 'tiny.yaml')}", *flags, "--device=cpu",
+            "--log-every=1"]
+
+
+def _start_cli(root, base):
+    """Two CPU processes of the training CLI with torchrun's environment."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -101,9 +121,8 @@ def _start_cli(root):
     env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port),
                OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo",
                PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-    cmd = [sys.executable, "-m", "dawn_tpu_torch.scripts.train_dm",
-           f"--config={os.path.join(root, 'tiny.yaml')}", *flags, "--device=cpu",
-           "--steps=2", "--log-every=1", f"--workdir={os.path.join(root, 'run')}"]
+    cmd = [sys.executable, "-m", "dawn_tpu_torch.scripts.train_dm", *base, "--steps=2",
+           f"--workdir={os.path.join(root, 'run')}"]
     return [subprocess.Popen(cmd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=repo,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
@@ -135,10 +154,35 @@ def _jax_step(stage, state, unravel, batch, rng, mesh, spec, names):
                 ema=by_name(new_state["ema_params"]), before=by_name(state["params"]))
 
 
+def _port_step(case, config, names):
+    """One unsharded step of the port's trainer on ``case``'s weights, batch
+    and draws, in the form of :func:`_jax_step`."""
+    trainer = DMTrainer(DMTrainConfig(**config), flow_ae=FlowAE(**TINY_LFG), unet_kw=UNET,
+                        device="cpu")
+    for module in ("unet", "flow_ae", "face_loc"):
+        getattr(trainer, module).load_state_dict(case[module])
+    trainer.ema = [e.clone() for e in case["ema"]]
+    before = [p.detach().clone().numpy() for p in trainer.unet.parameters()]
+    metrics = trainer.train_step(case["batch"], case["draws"])
+    params = list(trainer.unet.parameters())
+    moments = {k: [trainer.optimizer.state[p][k].numpy() for p in params] for k in ("mu", "nu")}
+    return dict(metrics=metrics, **moments, params=[p.detach().numpy() for p in params],
+                ema=[e.numpy() for e in trainer.ema], before=before)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     cli_root = str(tmp_path_factory.mktemp("cli"))
-    cli = _start_cli(cli_root)
+    base = _cli_args(cli_root)
+    cli = _start_cli(cli_root, base)
+    # the CLI on each gloo rank with an f16 teacher cache (stride 10: 5 clips
+    # of 2 videos recur) and a snapshot after every step from step 1
+    cached_root = str(tmp_path_factory.mktemp("cli_cached"))
+    cached = dict(cache=os.path.join(cached_root, "cache"),
+                  work=os.path.join(cached_root, "run"))
+    cached["argv"] = base + ["--steps=4", f"--teacher-cache={cached['cache']}",
+                             "--teacher-cache-stride=10", "--teacher-cache-f16",
+                             "--sample-every=1"]
     jt = JaxTrainer(JaxConfig(img_size=S, fea_channels=32, stage=1, ema_decay=DECAY, lr=LR),
                     flow_ae=JaxFlowAE(**TINY_LFG))
     jt.unet = JaxUnet3D(channels=jt.in_channels, cond_pose=6, **UNET)
@@ -170,7 +214,11 @@ def runs(tmp_path_factory):
         2: start_ranks([dict(case, name="stage1_seq2", seq=2, config=dict(CONFIG, stage=1)),
                         dict(case, name="stage2_seq2", seq=2, config=dict(CONFIG, stage=2),
                              batch=_tensors(batch2),
-                             draws=_tensors(jax_draws(rng2, B, T, ls)))],
+                             draws=_tensors(jax_draws(rng2, B, T, ls))),
+                        dict(case, name="stage1_seq2_remat_fft", seq=2,
+                             config=dict(CONFIG, stage=1, **REMAT_FFT)),
+                        dict(name="cli_cached", kind="dm_cli", seq=2,
+                             argv=cached["argv"] + [f"--workdir={cached['work']}"])],
                        2, str(tmp_path_factory.mktemp("train2"))),
         4: start_ranks([dict(case, name="stage1_data2_seq2", seq=2,
                              config=dict(CONFIG, stage=1))],
@@ -180,16 +228,18 @@ def runs(tmp_path_factory):
     stage1 = _jax_step(1, state, unravel, batch, rng, mesh, SPEC, names)
     stage2 = _jax_step(2, state, unravel, batch2, rng2, mesh, {k: P("data") for k in SPEC},
                        names)
+    remat_fft = _port_step(case, dict(CONFIG, stage=1, **REMAT_FFT), names)
     results = {world: wait() for world, wait in waits.items()}
     logs = [p.communicate(timeout=300)[0] for p in cli]
     return results, {"stage1_seq2": stage1, "stage1_data2_seq2": stage1,
-                     "stage2_seq2": stage2}, (cli_root, cli, logs)
+                     "stage2_seq2": stage2, "stage1_seq2_remat_fft": remat_fft}, (
+                         cli_root, cli, logs), cached
 
 
 @pytest.mark.parametrize("world,name", [(2, "stage1_seq2"), (4, "stage1_data2_seq2"),
-                                        (2, "stage2_seq2")])
+                                        (2, "stage2_seq2"), (2, "stage1_seq2_remat_fft")])
 def test_sharded_train_step(runs, world, name):
-    results, wants, _ = runs
+    results, wants = runs[:2]
     want = wants[name]
     ranks = [r[name] for r in results[world]]
     for r, res in enumerate(ranks[1:], 1):
@@ -227,6 +277,36 @@ def test_cli_two_ranks(runs):
     assert [x["step"] for x in lines] == [0, 1]
     assert all(np.isfinite(x["total"]) and x["grads_finite"] == 1.0 for x in lines)
     assert os.listdir(os.path.join(work, "ckpt")) == ["step_0000002.pt"]
+
+
+def test_cli_two_ranks_teacher_cache_and_snapshots(runs, tmp_path):
+    """The snapshots, taken on rank 0 alone, leave the ranks' generators
+    alike, so every step's draws agree; with the f16 teacher cache every rank
+    reads each step's entries back from disk, so the run equals one process
+    on the entries it stored."""
+    import json
+    from PIL import Image
+    from dawn_tpu_torch.scripts import train_dm
+
+    results, cached = runs[0], runs[3]
+    ranks = [r["cli_cached"] for r in results[2]]
+    assert ranks[0]["step"] == ranks[1]["step"] == 4
+    assert torch.equal(ranks[0]["generator"], ranks[1]["generator"])
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+    lines = [json.loads(x) for x in open(os.path.join(cached["work"], "metrics.jsonl"))]
+    assert [x["step"] for x in lines] == [0, 1, 2, 3]
+    assert lines[0]["teacher_cache_hit_rate"] < lines[-1]["teacher_cache_hit_rate"]
+    for step in (1, 2, 3):
+        with Image.open(os.path.join(cached["work"], "imgshots",
+                                     f"step_{step:07d}.png")) as png:
+            assert png.size == (4 * S, 7 * S)
+    single = str(tmp_path / "single")
+    train_dm.main(cached["argv"] + [f"--workdir={single}"])
+    want = [json.loads(x) for x in open(os.path.join(single, "metrics.jsonl"))]
+    assert [x["teacher_cache_hit_rate"] for x in want] == [1.0] * 4
+    for got, w in zip(lines, want):
+        for k in ("loss", "floss", "mouth_loss", "total"):
+            np.testing.assert_allclose(got[k], w[k], rtol=1e-4, err_msg=(got["step"], k))
 
 
 def test_cli_frame_check():

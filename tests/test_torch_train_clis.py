@@ -14,7 +14,13 @@ on chip_smoke.py's synthetic chunked-npy tree (32x32 frames). Then:
 - ``--restore`` resumes each run at its saved step;
 - the TensorBoard event files parse with TensorBoard's own loader (the LFG
   and PBnet runs, and one step of the DM CLI with ``--tensorboard``);
-- the LFG CLI raises on a config flag the port does not implement.
+- the LFG CLI raises on a config flag the port does not implement;
+- the DM CLI's ``--prefetch`` run logs the same metrics, bit for bit, as the
+  run without it; ``--teacher-cache`` (stride 20, so that the 4-frame clips
+  of 3 short videos recur) with ``remat: full`` from the yaml and
+  ``--sample-every 2`` logs a teacher-cache hit rate above 0, writes a
+  7-panel x 4-frame PNG and f32 cache entries; ``--teacher-cache-f16``
+  writes f16 entries.
 """
 
 import json
@@ -162,3 +168,57 @@ def test_dm_cli_tensorboard(tree, tmp_path):
     assert trainer.step == 1
     tags = scalars(os.path.join(work, "tb"))
     assert ("train/total", 0) in tags and ("train/loss", 0) in tags
+
+
+def _dm_run(tmp_path, flags, name, extra, config=None):
+    work = str(tmp_path / name)
+    trainer = train_dm.main([f"--config={config or dm_config(tmp_path)}", *flags,
+                             "--device=cpu", "--log-every=1", f"--workdir={work}", *extra])
+    lines = [json.loads(x) for x in open(os.path.join(work, "metrics.jsonl"))]
+    return trainer, work, lines
+
+
+def test_dm_cli_prefetch_matches_plain(tree, tmp_path):
+    _, flags = tree
+    _, _, plain = _dm_run(tmp_path, flags, "plain", ["--steps=2"])
+    _, _, pre = _dm_run(tmp_path, flags, "pre", ["--steps=2", "--prefetch"])
+    keys = ("total", "loss", "floss", "mouth_loss", "grad_norm", "frames")
+    assert [{k: x[k] for k in keys} for x in pre] == [{k: x[k] for k in keys} for x in plain]
+
+
+def test_dm_cli_teacher_cache_remat_and_snapshot(tree, tmp_path):
+    from PIL import Image
+
+    _, flags = tree
+    config = dm_config(tmp_path)
+    cfg = yaml.safe_load(open(config))
+    cfg["remat"] = "full"
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    cache = str(tmp_path / "cache")
+    trainer, work, lines = _dm_run(tmp_path, flags, "cached", [
+        "--steps=4", f"--teacher-cache={cache}", "--teacher-cache-stride=20",
+        "--sample-every=2"], config)
+    assert trainer.config.remat == "full" and trainer.step == 4
+    assert [x["step"] for x in lines] == [0, 1, 2, 3]
+    assert all(np.isfinite(x["total"]) for x in lines)
+    assert lines[0]["teacher_cache_hit_rate"] == 0.0 and lines[-1]["teacher_cache_hit_rate"] > 0
+    assert all(x["frames"] == 4 for x in lines)
+    with Image.open(os.path.join(work, "imgshots", "step_0000002.png")) as png:
+        assert png.size == (4 * S, 7 * S)
+    entries = sorted(os.listdir(cache))
+    assert entries and all(e.endswith(".npz") and int(e[-10:-4]) % 20 == 0 for e in entries)
+    with np.load(os.path.join(cache, entries[0])) as z:
+        assert sorted(z.files) == ["real_vid_conf", "real_vid_grid", "ref_img_fea"]
+        assert all(z[k].dtype == np.float32 for k in z.files)
+
+
+def test_dm_cli_teacher_cache_f16(tree, tmp_path):
+    _, flags = tree
+    cache = str(tmp_path / "cache16")
+    trainer, _, lines = _dm_run(tmp_path, flags, "f16", [
+        "--steps=2", f"--teacher-cache={cache}", "--teacher-cache-f16"])
+    assert trainer.step == 2 and "teacher_cache_hit_rate" in lines[-1]
+    for entry in os.listdir(cache):
+        with np.load(os.path.join(cache, entry)) as z:
+            assert all(z[k].dtype == np.float16 for k in z.files)

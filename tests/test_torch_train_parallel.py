@@ -25,6 +25,20 @@ receives the whole batch and draws. The unsharded steps run here meanwhile.
   rank 1's rows rank 0's masks, and another step). The metrics: rtol 1e-5;
   Adam's first moments to 1e-4 of each model's largest; the parameters by
   AdamW's first-step rule at 1e-3.
+- PBnet with the losses that need more than the whole batch's counts,
+  dropout 0.1, every draw made by the trainers' generators: ssim's joint
+  min and max are all-reduced (MIN, MAX, the gradient to the rank that
+  holds the extreme), var's gate reads the whole batch's mean, mmd runs on
+  the gathered z (its gradient back to each rank's rows) and hp's
+  directions are the whole batch's, its max all-reduced. Lambdas rc, kl,
+  ssim, var and mmd: the metrics to rtol 1e-5 and Adam's first moment to
+  1e-5 of each leaf's largest magnitude (of 1e-3 of the model's largest for
+  a leaf below that: the decoder's target T5 table gets a gradient of 1e-11,
+  4e-10 of the model's largest, f32 rounding alone). With hp too: hp is a variance of second differences
+  over epsilon^2 = 0.01 of the encoder's output, which rounds otherwise at
+  2 rows than at 4, so the f32 rounding grows about 100-fold (measured on
+  this case: 1.3e-4 relative on hp and on a leaf's first moment); there
+  the terms with hp in them and the first moments are held to 1e-3.
 """
 
 import functools
@@ -49,6 +63,9 @@ HP = dict(pos_dim=6, eye_dim=0, latent_dim=16, ff_size=32, num_layers=1, num_hea
           dropout=0.0)
 PB_CONFIG = dict(kind="pose", lr=1e-4, total_steps=1000)
 B, S, T = 4, 32, 16
+ALL_LOSSES = {"rc": 1.0, "kl": 1.0, "ssim": 1.0, "var": 1.0, "mmd": 1.0, "hp": 1.0}
+WHOLE_BATCH_LOSSES = {"pbnet_losses": {k: v for k, v in ALL_LOSSES.items() if k != "hp"},
+                      "pbnet_losses_hp": ALL_LOSSES}
 
 
 def _cases():
@@ -71,7 +88,10 @@ def _cases():
             dict(name="pbnet", kind="pbnet_train", seq=1, seed=4, config=PB_CONFIG, hp=HP,
                  batch=pb_batch, draws=pb_draws, epoch=0),
             dict(name="pbnet_dropout", kind="pbnet_train", seq=1, seed=4, config=PB_CONFIG,
-                 hp=dict(HP, dropout=0.1), batch=pb_batch, draws={}, epoch=0)]
+                 hp=dict(HP, dropout=0.1), batch=pb_batch, draws={}, epoch=0),
+            *[dict(name=name, kind="pbnet_train", seq=1, seed=5, config=PB_CONFIG,
+                   hp=dict(HP, dropout=0.1, lambdas=lambdas), batch=pb_batch, draws={},
+                   epoch=0) for name, lambdas in WHOLE_BATCH_LOSSES.items()]]
 
 
 def _update_rule(got, want, before, mu, lr, clear_of_max):
@@ -146,3 +166,26 @@ def test_pbnet_sharded_step_matches_unsharded(ranks, name):
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * top)
             _update_rule(got["params"][part], [p.detach() for p in pb_params[part]],
                          pb_before[part], pb_mu[part], PB_CONFIG["lr"], 1e-3)
+
+
+@pytest.mark.parametrize("name", list(WHOLE_BATCH_LOSSES))
+def test_pbnet_sharded_whole_batch_losses_match_unsharded(ranks, name):
+    cases, wait = ranks
+    pb = cases[name]
+    torch.manual_seed(pb["seed"])
+    pbt = PBnetTrainer(PBnetTrainConfig(**PB_CONFIG), hp=PBnetParams(**pb["hp"]), device="cpu")
+    metrics = pbt.train_step(pb["batch"], 0, pb["draws"])
+    assert set(pb["hp"]["lambdas"]) <= set(metrics)
+    with_hp = "hp" in pb["hp"]["lambdas"]
+    mu = [opt.state[p]["mu"] for opt in pbt.optimizers for p in opt.param_groups[0]["params"]]
+    top = max(m.abs().max().item() for m in mu)
+    tol = 1e-3 if with_hp else 1e-5
+    for rank in wait():
+        got = rank[name]
+        for k, v in metrics.items():
+            rtol = tol if k in ("hp", "mixed", "g_total") else 1e-5
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=rtol, err_msg=k)
+        for i, (a, b) in enumerate(zip(got["mu"], mu)):
+            scale = max(b.abs().max().item(), 1e-3 * top)
+            torch.testing.assert_close(a, b, rtol=0, atol=tol * scale,
+                                       msg=lambda m, i=i: f"leaf {i}: {m}")

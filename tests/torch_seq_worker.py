@@ -17,6 +17,9 @@ names, collects the sharded results into whole tensors, and writes
 - ``train``: one ``DMTrainer.make_sharded_step`` step on the case's weights,
   batch and draws: the metrics, Adam's moments, the parameters and the EMA
   after the step;
+- ``dm_cli``: ``python -m dawn_tpu_torch.scripts.train_dm`` with the case's
+  ``argv`` on every rank: the trainer's generator state, parameters and
+  step after the run;
 - ``lfg_train`` and ``pbnet_train``: one ``LFGTrainer`` or ``PBnetTrainer``
   ``make_sharded_step`` step of a trainer built from the case's seed, on its
   batch and draws: the metrics, Adam's first moments and the state after
@@ -92,6 +95,14 @@ def train(case, mesh):
             "ema": trainer.ema, "step": trainer.step}
 
 
+def dm_cli(case, mesh):
+    from dawn_tpu_torch.scripts import train_dm
+
+    trainer = train_dm.main(case["argv"])
+    return {"generator": trainer.generator.get_state(), "step": trainer.step,
+            "params": [p.detach() for p in trainer.unet.parameters()]}
+
+
 def lfg_train(case, mesh):
     from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
     from dawn_tpu_torch.train.train_lfg import LFGTrainConfig, LFGTrainer
@@ -125,7 +136,7 @@ def main(spec_path, out_dir):
     for case in cases:
         mesh = make_mesh(seq_parallel=case["seq"])
         results[case["name"]] = {"attention": attention, "sampler": sampler, "train": train,
-                                 "lfg_train": lfg_train,
+                                 "dm_cli": dm_cli, "lfg_train": lfg_train,
                                  "pbnet_train": pbnet_train}[case["kind"]](case, mesh)
     torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
     dist.destroy_process_group()
