@@ -68,6 +68,24 @@ done" line with its seconds), any failure exits non-zero:
    more runs with seeded face assets, so that stage 1 runs FaceBoxes and
    the 3DDFA MobileNet (init_pose not the default; each stage's seconds,
    the first run loading the assets).
+   eval parity - the evaluation networks, card against CPU, f32, TF32 off,
+   the same seeded weights: I3D at the released widths (1024 features, 400
+   logits) on 2 x 16 x 224^2 (1e-4 of max|ref|; then its card time per
+   batch, cuDNN TF32 on); the STGCN recognizer at full width (256 features)
+   on 'dawn_head' and 'openpose', 64 x 100 frames (1e-5); the released
+   128^2 LFG generator's frame features on 2 x 8 frames (1e-4).
+   eval path - the evaluation CLIs' ``main()`` on the card: ``ood_test
+   --metrics`` over 2 pairs (an 8 s WAV and a 128^2 portrait each,
+   assetless, 20 DDIM steps): exactly 400 K1 and no other kernel, each
+   pair's seconds, peak memory, a finite metrics.json; ``ood_test`` again
+   over the pairs reversed, for each pair's warm seconds; ``eval_quality
+   --released`` over the same pairs against the first run's PNG frames
+   saved as ``<tag>.npy``, with a seeded released-width I3D as
+   ``--i3d-ckpt``: exactly 400 K1, a finite report, ``per_video_l1`` 0
+   (same weights, seed and inputs; otherwise the differing PNG values are
+   printed and the phase fails); ``eval_pbnet --stgcn`` (seeded reemb6, 8
+   held-out videos, 2 seeds) and ``eval_lfg`` (a seeded FlowAE at the 128^2
+   widths, 4 videos at 128^2) on a seeded tree: no kernel, finite metrics.
    ancestral parity - the ancestral sampler (p_sample_loop) through
    sample_one_video at full width with a GaussianDiffusion of 3 train steps
    swapped in, T=40, f32, TF32 off, card (exactly 30 K1) against CPU, same
@@ -241,7 +259,8 @@ done" line with its seconds), any failure exits non-zero:
    trainer_clis with 0 for every kernel; the DM options' paths
    train_remat_none, train_remat_dots, train_remat_full, train_uncached,
    train_cached, snapshot, train_prefetch, train_fft_floss and
-   train_cached_nccl).
+   train_cached_nccl; the evaluation CLIs' paths ood_test and
+   eval_quality_released, 400 K1 each).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -1149,6 +1168,256 @@ def face_prep_parity(card):
     shutil.rmtree(root)
     del gpu
     torch.cuda.empty_cache()
+
+
+def _rel_err(got, ref):
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def eval_parity(card):
+    """Phase: the evaluation networks, card against CPU, f32, TF32 off, the
+    same seeded weights: I3D at the released widths (1024 features, 400
+    logits) on 2 x 16 x 224^2 within 1e-4 of max|ref| (then its card time
+    per batch with CUDA events, TF32 as PyTorch's default leaves it for
+    convolutions); the STGCN recognizer at full width (256 features) on
+    'dawn_head' (V=8, C=1) and 'openpose' (V=18, C=3), 64 x 100 frames,
+    within 1e-5; the LFG frame features (``lfg_frame_features``) of the
+    released 128^2 LFG generator on 2 x 8 frames within 1e-4."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.evaluate.i3d import InceptionI3d
+    from dawn_tpu_torch.evaluate.quality import lfg_frame_features
+    from dawn_tpu_torch.models.lfg.generator import LFGGenerator
+    from dawn_tpu_torch.models.pbnet.stgcn import STGCN, build_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 130)
+
+    def seeded_stats(model):
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    m.running_mean.normal_(0, 0.1)
+                    m.running_var.uniform_(0.5, 1.5)
+        return model.eval()
+
+    def both(make):
+        torch.manual_seed(SEED + 131)
+        cpu = seeded_stats(make())
+        gpu = make().to("cuda").eval()
+        gpu.load_state_dict(cpu.state_dict())
+        return cpu, gpu
+
+    cpu, gpu = both(InceptionI3d)
+    video = torch.from_numpy(rng.uniform(-1, 1, (2, 16, 224, 224, 3)).astype(np.float32))
+    errs = {}
+    with torch.no_grad():
+        for features in (True, False):
+            ref = cpu(video, features=features)
+            got = gpu(video.cuda(), features=features).cpu()
+            check(ref.shape == (2, 1024 if features else 400), f"I3D shape {tuple(ref.shape)}")
+            errs["features" if features else "logits"] = _rel_err(got, ref)
+        torch.backends.cudnn.allow_tf32 = True
+        x = video.cuda()
+        ms = time_ms(lambda: gpu(x), 10)
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"eval parity: I3D released widths (1024 features, 400 logits) on 2 x 16 x 224^2, "
+          f"card vs CPU f32, max err / max|ref|: features {errs['features']:.3e}, logits "
+          f"{errs['logits']:.3e} (tol 1e-4)", flush=True)
+    print(f"eval parity [{card}]: I3D forward on 2 x 16 x 224^2 (features, cuDNN TF32 on, "
+          f"PyTorch's default for convolutions): {ms:.3f} ms per batch", flush=True)
+    check(max(errs.values()) <= 1e-4, f"I3D card vs CPU {errs}")
+    del cpu, gpu, x
+
+    for layout, (v, c) in (("dawn_head", (8, 1)), ("openpose", (18, 3))):
+        cpu, gpu = both(lambda: STGCN(c, 10, build_graph(layout, "spatial")))
+        with torch.no_grad():
+            for p_cpu, p_gpu in zip(cpu.edge_importance, gpu.edge_importance):
+                p_cpu.uniform_(0.5, 1.5)
+                p_gpu.copy_(p_cpu)
+            x = torch.from_numpy(rng.randn(64, 100, v, c).astype(np.float32))
+            ref, got = cpu(x), gpu(x.cuda())
+        e = {k: _rel_err(got[k].cpu(), ref[k]) for k in ("features", "yhat")}
+        print(f"eval parity: STGCN '{layout}' (V={v}, C={c}) full width, 64 x 100 frames, card "
+              f"vs CPU f32: features {tuple(ref['features'].shape)} {e['features']:.3e}, "
+              f"logits {e['yhat']:.3e} (tol 1e-5)", flush=True)
+        check(max(e.values()) <= 1e-5, f"STGCN {layout} card vs CPU {e}")
+
+    cpu, gpu = both(LFGGenerator)
+    frames = rng.rand(2, 8, 128, 128, 3).astype(np.float32)
+    err = _rel_err(lfg_frame_features(gpu, frames), lfg_frame_features(cpu, frames))
+    print(f"eval parity: LFG frame features (released 128^2 generator, 2 x 8 frames, mean ++ "
+          f"std of the 256-channel bottleneck), card vs CPU f32: {err:.3e} (tol 1e-4)",
+          flush=True)
+    check(err <= 1e-4, f"LFG frame features card vs CPU {err}")
+    del cpu, gpu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+
+def _finite(report):
+    """Every number in a (nested) report is finite."""
+    import math
+    if isinstance(report, dict):
+        return all(_finite(v) for v in report.values())
+    if isinstance(report, (list, tuple)):
+        return all(_finite(v) for v in report)
+    return not isinstance(report, float) or math.isfinite(report)
+
+
+def eval_path(card):
+    """Phase: the evaluation CLIs' ``main()`` on the card. ``ood_test
+    --metrics`` over 2 pairs, each an 8 s 44.1 kHz WAV (T=200) and a 128^2
+    portrait, assetless (random HuBERT-large, reemb6 x 2, the 128^2 DAWN
+    at 20 DDIM steps): exactly 400 K1 and no other kernel, each pair's
+    seconds, peak memory, a finite metrics.json; then ``ood_test`` once more
+    over the pairs in the other order, so that each pair has a warm run
+    (the models resident). Then ``eval_quality --released`` over the same
+    pairs against a reference dir of the first run's PNG frames as
+    ``<tag>.npy``, with ``--i3d-ckpt`` a seeded released-width I3D written
+    by ``torch.save``: exactly 400 K1 and nothing else, a finite report,
+    and ``per_video_l1`` 0 (the same weights, seed and inputs). Then
+    ``eval_pbnet --stgcn`` (a seeded reemb6 pose checkpoint, 8 held-out
+    videos of 120 frames in 100-frame windows, 2 seeds) and ``eval_lfg`` (a
+    seeded FlowAE at the 128^2 widths in the reference layout, 4 videos of
+    120 frames at 128^2):
+    no kernel, finite metrics. Returns the (K1-K6, K1p) launches of the
+    ood_test and eval_quality --released calls."""
+    import tempfile
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.evaluate.i3d import InceptionI3d
+    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.pipeline.pose_blink import build_for, load_pbnet_with_opt
+    from dawn_tpu_torch.scripts import eval_lfg, eval_pbnet, eval_quality, ood_test
+    from dawn_tpu_torch.train.data import HDTF_TEST_SPLIT
+    from dawn_tpu_torch.weights.checkpoints import lfg_reference_state, save_pbnet_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="dawn_eval_")
+    t = 200
+    lines = []
+    for i in range(2):
+        d = os.path.join(root, f"inputs{i}")
+        os.makedirs(d)
+        wav, img = write_pipeline_inputs(d, 8.0, 128, SEED + 140 + i)
+        wav2, img2 = os.path.join(d, f"speech{i}.wav"), os.path.join(d, f"portrait{i}.png")
+        os.rename(wav, wav2)
+        os.rename(img, img2)
+        lines.append(f"{img2} {wav2}\n")
+    pairs, reverse = os.path.join(root, "pairs.txt"), os.path.join(root, "pairs_reverse.txt")
+    with open(pairs, "w") as f:
+        f.writelines(lines)
+    with open(reverse, "w") as f:
+        f.writelines(lines[::-1])
+    tags = [f"portrait{i}_speech{i}" for i in range(2)]
+
+    def counted(fn):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _counts(), torch.cuda.max_memory_allocated() / 2**30
+
+    base = ["--resolution", "128", "--sampling-step", "20", "--win-width", "40"]
+    out_dir = os.path.join(root, "ood")
+    ood, ood_s, ood_launches, ood_peak = counted(lambda: ood_test.main(
+        ["--pairs", pairs, "--output", out_dir, "--cache", os.path.join(root, "cache"),
+         "--metrics", *base]))
+    check(ood_launches == (2 * t, 0, 0, 0, 0, 0, 0), f"ood_test launches {ood_launches}")
+    report = ood["report"]
+    check(_finite(report) and set(report["per_identity"]) == {0, 1}
+          and os.path.exists(os.path.join(out_dir, "metrics.json")), "ood_test metrics.json")
+    refs = os.path.join(root, "refs")
+    os.makedirs(refs)
+    first = {}
+    for i, tag in enumerate(tags):
+        frames = ood_test.load_frames(os.path.join(out_dir, tag, f"portrait{i}", "img"), 128)
+        check(frames.shape == (t, 128, 128, 3), f"ood_test {tag} frames {frames.shape}")
+        first[tag] = frames
+        np.save(os.path.join(refs, f"{tag}.npy"), np.round(frames * 255).astype(np.uint8))
+    rev, _, _, _ = counted(lambda: ood_test.main(
+        ["--pairs", reverse, "--output", os.path.join(root, "ood_rev"), "--cache",
+         os.path.join(root, "cache_rev"), *base]))
+    warm = {tags[1]: ood["seconds"][1], tags[0]: rev["seconds"][1]}
+    print(f"eval path [{card}]: ood_test.main() --metrics over 2 pairs (8 s 44.1 kHz WAV + "
+          f"128^2 portrait each, assetless, 20 DDIM steps) in {ood_s:.3f} s: pairs "
+          f"{', '.join(f'{s:.3f} s' for s in ood['seconds'])} (the first builds HuBERT-large, "
+          f"the PBnets and the DAWN model), peak memory {ood_peak:.2f} GiB; launches K1 "
+          f"{ood_launches[0]} (others 0); warm seconds of each pair (models resident): "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in warm.items())}", flush=True)
+    print(f"eval path [{card}]: ood_test metrics: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in report.items() if isinstance(v, float)), flush=True)
+
+    torch.manual_seed(SEED + 141)
+    i3d_path = os.path.join(root, "rgb_seeded.pt")
+    torch.save(InceptionI3d().state_dict(), i3d_path)
+    rel_out = os.path.join(root, "released.json")
+    rel, rel_s, rel_launches, rel_peak = counted(lambda: eval_quality.main(
+        ["--released", "--pairs", pairs, "--reference-dir", refs, "--i3d-ckpt", i3d_path,
+         "--output", os.path.join(root, "rel"), "--cache", os.path.join(root, "cache_rel"),
+         "--out", rel_out, *base]))
+    check(rel_launches == (2 * t, 0, 0, 0, 0, 0, 0), f"eval_quality launches {rel_launches}")
+    check(_finite(rel) and os.path.exists(rel_out), "eval_quality --released report finite")
+    l1 = rel["per_video_l1"]
+    print(f"eval path [{card}]: eval_quality.main() --released over the same pairs with "
+          f"--i3d-ckpt (seeded released-width I3D) in {rel_s:.3f} s, peak memory "
+          f"{rel_peak:.2f} GiB, launches K1 {rel_launches[0]} (others 0): " + ", ".join(
+              f"{k} {v:.6g}" for k, v in rel.items() if isinstance(v, float))
+          + f"; per_video_l1 {l1}", flush=True)
+    if any(v != 0.0 for v in l1.values()):
+        for i, tag in enumerate(tags):
+            again = ood_test.load_frames(os.path.join(root, "rel", tag, f"portrait{i}", "img"),
+                                         128)
+            diff = np.abs(again - first[tag])
+            print(f"eval path: {tag}: {int((diff > 0).sum())} of {diff.size} values differ "
+                  f"between the two runs' PNGs, at most {diff.max() * 255:.0f}/255 (frames "
+                  f"{sorted(set(np.nonzero(diff)[0].tolist()))[:10]})", flush=True)
+    check(all(v == 0.0 for v in l1.values()), f"per_video_l1 against ood_test's frames {l1}")
+
+    names = list(HDTF_TEST_SPLIT[:8])
+    flags = write_hdtf_tree(os.path.join(root, "data"), {n: 120 for n in names}, 128,
+                            SEED + 142)
+    dirs = dict(f[2:].split("=", 1) for f in flags)
+    torch.manual_seed(SEED + 143)
+    os.makedirs(os.path.join(root, "pose"))
+    ckpt = os.path.join(root, "pose", "checkpoint_1.pth.tar")
+    save_pbnet_checkpoint(build_for({}, 6, 0, "cpu"), ckpt)
+    with open(os.path.join(root, "pose", "opt.yaml"), "w") as f:
+        f.write("archiname: transformerreemb6\n")
+    pb, pb_s, pb_launches, _ = counted(lambda: eval_pbnet.main(
+        ["--ckpt", ckpt, *[f"--{k}={dirs[k]}" for k in ("hubert-dir", "pose-dir", "eye-dir",
+                                                        "length-dict")],
+         "--workdir", os.path.join(root, "pbnet_eval"), "--niter", "2", "--stgcn"]))
+    load_pbnet_with_opt.cache_clear()
+    check(len(pb) == 2 and _finite(pb) and len(pb[0]) == 16, f"eval_pbnet metrics {pb}")
+    dumps = os.listdir(os.path.join(root, "pbnet_eval", "eval_pred", "1"))
+    check(len(dumps) == len(names), f"eval_pbnet dumps {dumps}")
+    print(f"eval path [{card}]: eval_pbnet.main() --stgcn (reemb6 pose, {len(names)} held-out "
+          f"videos x 120 frames in 100-frame windows, 2 seeds, the seeded dawn_head recognizer) "
+          f"in {pb_s:.3f} s, "
+          f"launches {pb_launches}: seed 0 " + ", ".join(
+              f"{k} {v:.6g}" for k, v in pb[0].items()), flush=True)
+    torch.manual_seed(SEED + 144)
+    lfg_path = os.path.join(root, "LFG_seeded.pth")
+    torch.save(lfg_reference_state(FlowAE()), lfg_path)
+    lfg, lfg_s, lfg_launches, lfg_peak = counted(lambda: eval_lfg.main(
+        ["--lfg-ckpt", lfg_path, "--frames-dir", dirs["frames-dir"], "--img-size", "128",
+         "--num-videos", "4", "--workdir", os.path.join(root, "lfg_eval"), "--write-videos"]))
+    check(len(lfg) == 4 and _finite(lfg), f"eval_lfg losses {lfg}")
+    check(pb_launches == lfg_launches == (0,) * 7,
+          f"eval_pbnet / eval_lfg launches {pb_launches} {lfg_launches}")
+    print(f"eval path [{card}]: eval_lfg.main() (seeded FlowAE at the 128^2 widths, 4 videos x "
+          f"120 frames at 128^2, side-by-side mp4s) in {lfg_s:.3f} s, peak memory "
+          f"{lfg_peak:.2f} GiB, launches {lfg_launches}: L1 {lfg}", flush=True)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return ood_launches, rel_launches
 
 
 def bench_attention(card):
@@ -3430,6 +3699,8 @@ def main():
     phase(pipeline_parity)
     phase(face_prep_parity, smi)
     pipeline = phase(pipeline_path, smi)
+    phase(eval_parity, smi)
+    ood, released = phase(eval_path, smi)
     k2 = phase(kernel_k2, smi, rates)
     phase(train_parity)
     train = phase(train_path, smi)
@@ -3472,7 +3743,8 @@ def main():
              "sample_256_T400": phase(video_path, smi, 400, img_size=256, decode_chunk=16),
              "temporal_attention_grad_T400": grad_t400, "bench_attention": bench,
              "lfg_train": lfg_train, "pbnet_train": pbnet_train, "trainer_clis": clis,
-             "pbnet_sharded": pbnet_sharded, "train_cached_nccl": cached_nccl, **extras}
+             "pbnet_sharded": pbnet_sharded, "train_cached_nccl": cached_nccl,
+             "ood_test": ood, "eval_quality_released": released, **extras}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,

@@ -1,6 +1,6 @@
 """The training datasets: chunked-npy HDTF clips.
 
-Port of ``dawn_tpu/train/data.py:23-399, 542-569``: one subdirectory per
+Port of ``dawn_tpu/train/data.py``: one subdirectory per
 video and modality (frames, hubert, pose, eye, optional lmk) full of
 25-frame ``chunk_%04d.npy`` blocks, and ``length_dict.pkl`` mapping each
 video to its frame count; the reference's held-out test split and bad
@@ -18,7 +18,10 @@ videos are left out of training.
   :func:`lengths_to_mask` for ragged batches;
 - :func:`frame_pair_batches`: the LFG's (source, driving) frame pairs of
   ``scripts/train_lfg.py:20-50``, augmented by
-  :func:`dawn_tpu_torch.train.augment.augment_frame_pair`.
+  :func:`dawn_tpu_torch.train.augment.augment_frame_pair`;
+- :class:`FramesDataset` (``dawn_tpu/train/data.py:402-490`` in test mode):
+  a folder of videos (frame images, chunked npy, mp4 or npy) read whole, as
+  the LFG evaluation reads them.
 
 Clips, pairs and batches are drawn from a ``np.random.RandomState``, the
 same stream as the JAX package's, so one seed gives the same batches in
@@ -468,6 +471,73 @@ def collate_padded(samples: List[Dict[str, np.ndarray]], keys=("x", "hubert")
 
 
 # --------------------------------------------------------------------- LFG
+
+class FramesDataset:
+    """A folder of videos read whole, as the LFG evaluation reads them
+    (LFG/frames_dataset.py in test mode): root holds one entry per video, a
+    directory of frame images (png/jpg), a chunked-npy directory
+    (chunk_*.npy of 25 frames), an .mp4 (read via cv2) or an .npy; each frame
+    is resized to ``image_size``^2 with cv2's INTER_AREA where it differs.
+    """
+
+    def __init__(self, root_dir: str, image_size: int = 256):
+        self.root = root_dir
+        self.image_size = image_size
+        self.videos = sorted(os.listdir(root_dir))
+
+    def __len__(self):
+        return len(self.videos)
+
+    def held_out(self) -> List[int]:
+        """Indices of the HDTF test split's videos where the tree has any,
+        else of every video, in name order."""
+        return ([i for i, v in enumerate(self.videos) if v in HDTF_TEST_SPLIT]
+                or list(range(len(self.videos))))
+
+    def _read_video(self, name: str) -> np.ndarray:
+        """(T, H, W, 3) float32 [0,1]."""
+        path = os.path.join(self.root, name)
+        if os.path.isdir(path):
+            chunks = sorted(glob.glob(os.path.join(path, "chunk_*.npy")))
+            if chunks:
+                vid = np.concatenate([np.load(c) for c in chunks])
+                return vid.astype(np.float32) / 255.0
+            import cv2
+            frames = []
+            for f in sorted(os.listdir(path)):
+                if f.lower().endswith((".png", ".jpg", ".jpeg")):
+                    img = cv2.cvtColor(cv2.imread(os.path.join(path, f)),
+                                       cv2.COLOR_BGR2RGB)
+                    frames.append(img)
+            return np.stack(frames).astype(np.float32) / 255.0
+        if path.endswith((".mp4", ".gif", ".avi")):
+            import cv2
+            cap = cv2.VideoCapture(path)
+            frames = []
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            cap.release()
+            return np.stack(frames).astype(np.float32) / 255.0
+        if path.endswith(".npy"):
+            return np.load(path).astype(np.float32) / 255.0
+        raise ValueError(f"unsupported video entry {path}")
+
+    def _resize(self, frame: np.ndarray) -> np.ndarray:
+        s = self.image_size
+        if frame.shape[0] == s and frame.shape[1] == s:
+            return frame
+        import cv2
+        return cv2.resize(frame, (s, s), interpolation=cv2.INTER_AREA)
+
+    def sample(self, idx: int):
+        """{'video': (T, S, S, 3) f32 in [0, 1], 'name'}."""
+        name = self.videos[idx]
+        return {"video": np.stack([self._resize(f) for f in self._read_video(name)]),
+                "name": name}
+
 
 def frame_pair_batches(frames_dir: str, batch_size: int, steps: int,
                        rng: np.random.RandomState) -> Iterator[Dict[str, np.ndarray]]:

@@ -9,7 +9,9 @@ the CPU at a tiny topology (yaml ``unet:``/``lfg:`` overrides, 32x32, 4
 frames): two stage-1 steps log finite metrics and save a checkpoint,
 ``--restore`` resumes from it, stage 2 runs a step, and the teacher-cache,
 prefetch and snapshot flags parse to the JAX script's values (their runs:
-tests/test_torch_train_clis.py).
+tests/test_torch_train_clis.py). Also ``FramesDataset`` against the JAX
+package's in test mode on that tree plus a PNG-folder video and .npy videos:
+the same whole videos, resized or not, and the same held-out order.
 """
 
 import json
@@ -113,3 +115,51 @@ def test_cli_unported_flags_raise(tree, flag):
     for k, v in defaults.items():
         if k != name.replace("-", "_"):
             assert getattr(args, k) == v, k
+
+
+@pytest.fixture(scope="module")
+def frames_root(tree, tmp_path_factory):
+    """The tree's chunked-npy videos plus a PNG-folder video and three .npy
+    videos."""
+    import cv2
+    root, _ = tree
+    frames = str(tmp_path_factory.mktemp("frames_root"))
+    rng = np.random.RandomState(9)
+    for name in sorted(os.listdir(os.path.join(root, "frames"))):
+        os.symlink(os.path.join(root, "frames", name), os.path.join(frames, name))
+    os.makedirs(os.path.join(frames, "pngs"))
+    for i in range(5):
+        cv2.imwrite(os.path.join(frames, "pngs", f"{i:03d}.png"),
+                    (rng.rand(S, S, 3) * 255).astype(np.uint8))
+    np.save(os.path.join(frames, "clip.npy"), (rng.rand(7, S, S, 3) * 255).astype(np.uint8))
+    for k in range(2):
+        np.save(os.path.join(frames, f"person#{k}.npy"),
+                (rng.rand(4 + k, S, S, 3) * 255).astype(np.uint8))
+    return frames
+
+
+def _same(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if isinstance(a[k], str):
+            assert a[k] == b[k], k
+        else:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("size", [S, 24])
+def test_frames_dataset_matches_jax(frames_root, size):
+    """FramesDataset of the port against the JAX package's in test mode: the
+    same videos in the same order, whole and resized (cv2's INTER_AREA at
+    24^2) or not, and the held-out order is the JAX script's."""
+    from dawn_tpu.train import data as jax_data
+    from dawn_tpu_torch.train import data
+
+    ours = data.FramesDataset(frames_root, image_size=size)
+    theirs = jax_data.FramesDataset(frames_root, mode="test", image_size=size)
+    assert ours.videos == theirs.videos and len(ours) == len(theirs)
+    for i in range(len(ours)):
+        _same(ours.sample(i), theirs.sample(i))
+    held = [i for i, v in enumerate(theirs.videos) if v in jax_data.HDTF_TEST_SPLIT]
+    assert held and ours.held_out() == held
