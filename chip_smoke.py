@@ -174,6 +174,33 @@ done" line with its seconds), any failure exits non-zero:
    CPU (1e-4 of max|ref|), one PBnetTrainer step each (finite); 'gru' pose
    and blink models written as release-layout checkpoint_*.pth.tar +
    opt.yaml and read back by generate_drives_separate, card against CPU.
+   face viz - the face visualisations on the dense BFM mesh: stage 1's nets
+   on the card on seeded assets over a 1080p portrait give the 62
+   parameters, the 38,365 dense vertices and the 68 landmarks; the seeded
+   assets carry no triangle list, so the mesh is the Delaunay triangulation
+   of the vertices' image positions. The rasteriser's load (its g++ build
+   at first use), then render_depth, render_mesh_overlay, pncc, uv_tex
+   (uv_coords: the vertices' normalised image positions with seeded
+   jitter), viz_pose and draw_landmarks on the whole frame and ser_to_ply /
+   ser_to_obj of two faces, merged and not, each timed: finite, in range,
+   something drawn, every vertex and face written.
+   Then the host rasteriser (csrc/host/render.cpp, g++) against its numpy
+   versions on a cut of the mesh, by the JAX tests' rule.
+   golden - the port's frozen sampler (dawn_tpu_torch/scripts/make_golden.py,
+   f32 at the released topology, 128^2 x 8 frames x 4 steps and 256^2 x 8 x
+   2) on the card, TF32 off, against tests/golden/torch_golden_{128,256}.npz
+   (made on the CPU): pixels and flow grids within 5e-4, exactly 40 and 20
+   K1.
+   scripts - each probe script's main() at full width on the card:
+   smoke_e2e (128^2, 200 frames, 20 steps, --attn local; its cold and warm
+   calls, 200 K1 each), profile_sample (128^2, T=200: the DDIM and decode
+   phases apart, their sum against the whole warm call, the counted
+   operations and their share of the bf16 peak), probe_unet_phases
+   (--modules --extras) and probe_micro at 128^2 and T=200,
+   probe_train_phases (configs/dm_train_stage1.yaml, bs 4, 20 frames, bf16,
+   --modules: K1 and K2) and probe_packed_compile (nvcc of the K1 source,
+   first and warm launches, one launch against four chunks); the splits on
+   their lines, and every kernel launch of each run counted and checked.
 10. kernel K3 - the tiled windowed-attention forward on the (N, H, T, D)
    layout against its plain version (the banded form) on the card, TF32 off:
    T=400 and T=800 at the 128^2 top level (N=1024, 8 x 32, w=40) in f32 and
@@ -260,7 +287,9 @@ done" line with its seconds), any failure exits non-zero:
    train_remat_none, train_remat_dots, train_remat_full, train_uncached,
    train_cached, snapshot, train_prefetch, train_fft_floss and
    train_cached_nccl; the evaluation CLIs' paths ood_test and
-   eval_quality_released, 400 K1 each).
+   eval_quality_released, 400 K1 each; golden and the probe scripts'
+   paths smoke_e2e, profile_sample, probe_unet_phases, probe_micro,
+   probe_train_phases and probe_packed_compile).
 
 The line before the last is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -274,16 +303,6 @@ import sys
 import time
 
 SEED = 0
-# Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 FLOP/s, f32 FLOP/s)
-PEAKS = {"PCIe": (2.0e12, 756e12, 51e12), "NVL": (3.9e12, 835e12, 60e12),
-         "SXM": (3.35e12, 989e12, 67e12)}
-
-
-def peaks_for(name):
-    for key, rates in PEAKS.items():
-        if key in name:
-            return key, rates
-    return "SXM", PEAKS["SXM"]
 
 
 def _bound(bytes_moved, flops, rates):
@@ -409,6 +428,7 @@ def kernel_k1(card, rates):
     import torch
     import torch.nn.functional as F
     from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.utils.profiling import band_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -467,7 +487,7 @@ def kernel_k1(card, rates):
                - la.local_attention_packed_plain(q, k, v, vec, w, heads).float()).abs().max().item()
 
     bytes_moved = 4 * n * t * heads * d * 2 + vec.numel() * 4
-    flops = 4 * d * band_entries(t, w) * n * heads
+    flops = 4 * d * band_pairs(t, w) * n * heads
     bound_ms, bound_by = _bound(bytes_moved, flops, rates)
     print(f"kernel K1 timing [{card}] main shape bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library (sdpa, err {lib_err:.3e}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -508,6 +528,7 @@ def kernel_k1p(card, rates):
     import torch
     import torch.nn.functional as F
     from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.utils.profiling import band_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -563,7 +584,7 @@ def kernel_k1p(card, rates):
     mse_k1 = ((k1p().float() - la.local_attention_packed(q, k, v, vec, w, 8).float()) ** 2
               ).mean().item()
     bytes_moved = 4 * n * t * 8 * 32 * 2 + vec.numel() * 4
-    flops = 4 * 32 * band_entries(t, w) * n * 8
+    flops = 4 * 32 * band_pairs(t, w) * n * 8
     bound_ms, bound_by = _bound(bytes_moved, flops, rates)
     print(f"kernel K1p timing [{card}] main shape bf16: kernel {ms:.4f} ms (K1 {k1_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, library (sdpa with the (H, T, T) bias) {library_ms:.4f} "
@@ -675,11 +696,6 @@ def write_face_assets(root, seed, layout="flat", faceboxes_sd=None, tddfa_sd=Non
     return root
 
 
-def band_entries(t, w):
-    """In-band (query, key) pairs of one (sequence, head)."""
-    return sum(min(t - 1, i + w) - max(0, i - w) + 1 for i in range(t))
-
-
 def kernel_k2(card, rates):
     """Phase: K2 against its plain version, the autograd Function on the
     card against the plain version's autograd, timings at the stage-1 shape."""
@@ -687,6 +703,7 @@ def kernel_k2(card, rates):
     import torch
     import torch.nn.functional as F
     from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.utils.profiling import band_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -793,10 +810,10 @@ def kernel_k2(card, rates):
         k1_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, scale=1.0), 20)
     k1_bound, k1_by = _bound(4 * n * t * heads * d * 2 + vec.numel() * 4,
-                             4 * d * band_entries(t, w) * n * heads, rates)
+                             4 * d * band_pairs(t, w) * n * heads, rates)
 
     bytes_moved = 7 * n * t * heads * d * 2 + 2 * vec.numel() * 4
-    flops = 10 * d * band_entries(t, w) * n * heads
+    flops = 10 * d * band_pairs(t, w) * n * heads
     bound_ms, bound_by = _bound(bytes_moved, flops, rates)
     print(f"kernel K2 timing [{card}] stage-1 shape bf16 (N={n} T={t} 8x32 w={w}): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa backward, dq/dk/dv only, "
@@ -1065,6 +1082,17 @@ def pipeline_path(card):
     return launches
 
 
+def portrait_1080p(rng):
+    """A 1920 x 1080 BGR uint8 frame with a bright blob where a face would
+    be, plus noise drawn from ``rng``."""
+    import numpy as np
+    h, w = 1080, 1920
+    yy, xx = np.mgrid[0:h, 0:w] / h
+    face = np.stack([0.35 + 0.3 * np.exp(-((xx - 0.9) ** 2 + (yy - 0.45) ** 2) / 0.06),
+                     0.45 + 0.2 * yy, 0.5 + 0.1 * xx], axis=-1)
+    return np.clip(255 * face + 6 * rng.randn(h, w, 3), 0, 255).astype(np.uint8)
+
+
 def face_prep_parity(card):
     """Phase: stage 1, card against CPU, f32, TF32 off, on the same seeded
     assets (``write_face_assets``: the release files' shapes and layouts).
@@ -1092,12 +1120,8 @@ def face_prep_parity(card):
     write_face_assets(root, SEED + 90)
     gpu, cpu = load_face_assets(root, "cuda"), load_face_assets(root, "cpu")
     rng = np.random.RandomState(SEED + 91)
-    h, w = 1080, 1920
-    yy, xx = np.mgrid[0:h, 0:w] / h
-    face = np.stack([0.35 + 0.3 * np.exp(-((xx - 0.9) ** 2 + (yy - 0.45) ** 2) / 0.06),
-                     0.45 + 0.2 * yy, 0.5 + 0.1 * xx], axis=-1)
     path = os.path.join(root, "portrait_1080p.png")
-    cv2.imwrite(path, np.clip(255 * face + 6 * rng.randn(h, w, 3), 0, 255).astype(np.uint8))
+    cv2.imwrite(path, portrait_1080p(rng))
     img = cv2.imread(path)
 
     def rel(got, ref):
@@ -2392,6 +2416,7 @@ def kernel_k3(card, rates):
     import torch
     import torch.nn.functional as F
     from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.utils.profiling import band_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2444,7 +2469,7 @@ def kernel_k3(card, rates):
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=1.0), 10)
         bound_ms, bound_by = _bound(4 * q.numel() * 2 + vec.numel() * 4,
-                                    4 * 32 * band_entries(t, w) * n * heads, rates)
+                                    4 * 32 * band_pairs(t, w) * n * heads, rates)
         timing[t] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms)
         print(f"kernel K3 timing [{card}] 128^2 top level T={t} bf16 (N={n} 8x32 w={w}): "
@@ -2463,6 +2488,7 @@ def kernel_k4(card, rates):
     import numpy as np
     import torch
     from dawn_tpu_torch.ops import local_attention as la
+    from dawn_tpu_torch.utils.profiling import band_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2556,7 +2582,7 @@ def kernel_k4(card, rates):
         library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g,
                                                          retain_graph=True), 5)
         bound_ms, bound_by = _bound(7 * q.numel() * 2 + 2 * vec.numel() * 4,
-                                    10 * 32 * band_entries(t, w) * n * heads, rates)
+                                    10 * 32 * band_pairs(t, w) * n * heads, rates)
         timing[t] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
         print(f"kernel K4 timing [{card}] 128^2 top level T={t} bf16 (N={n} 8x32 w={w}): "
@@ -3645,6 +3671,200 @@ def pbnet_archs(card):
     torch.cuda.empty_cache()
 
 
+def mesh_counts(path):
+    """(vertices, faces) written in a .ply or .obj file."""
+    lines = open(path).read().splitlines()
+    if path.endswith(".obj"):
+        return (sum(ln.startswith("v ") for ln in lines),
+                sum(ln.startswith("f ") for ln in lines))
+    body = [ln.split() for ln in lines[lines.index("end_header") + 1:] if ln]
+    return sum(len(f) == 3 for f in body), sum(len(f) == 4 and f[0] == "3" for f in body)
+
+
+def face_viz(card, device="cuda"):
+    """Phase: the face visualisations on the dense BFM mesh of a 1080p
+    portrait (stage 1's nets on ``device``, everything after on the host),
+    each timed and checked, then the host rasteriser against its numpy
+    versions on a cut of the mesh by the JAX tests' rule: depth within
+    1e-5 where both cover and at most 4 pixels covered by one only,
+    colours off by more than 1e-4 on under 2 % of the covered pixels."""
+    import tempfile
+    import numpy as np
+    from scipy.spatial import Delaunay
+    from dawn_tpu_torch.pipeline import face_prep as fp
+    from dawn_tpu_torch.pipeline import face_viz as fv
+    from dawn_tpu_torch.pipeline import mesh_io
+    from dawn_tpu_torch.runtime import native
+    from dawn_tpu_torch.weights.checkpoints import load_face_assets
+
+    root = tempfile.mkdtemp(prefix="dawn_viz_")
+    assets = load_face_assets(write_face_assets(root, SEED + 95), device)
+    img = portrait_1080p(np.random.RandomState(SEED + 96))
+    h, w = img.shape[:2]
+    boxes = fp.detect_faces(img, fp.run_net(assets.faceboxes))
+    check(len(boxes) > 0, "face viz: no face box")
+    params, rois = fp.regress_3dmm(img, boxes[:1], fp.run_net(assets.tddfa),
+                                   param_mean=assets.param_mean, param_std=assets.param_std)
+    ver = assets.bfm.recon_vers(params[0], rois[0], fp.CROP_SIZE, dense=True)
+    lmk = assets.bfm.recon_vers(params[0], rois[0], fp.CROP_SIZE, dense=False)
+    tri = Delaunay(ver[:2].T).simplices.astype(np.int32)
+    check(ver.shape == (3, BFM_VERTICES) and lmk.shape == (3, 68) and np.isfinite(ver).all(),
+          f"face viz: vertices {ver.shape}, landmarks {lmk.shape}")
+    ms = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    inside = (ver[0] >= 0) & (ver[0] < w) & (ver[1] >= 0) & (ver[1] < h)
+    timed("render.cpp load (g++ at first use)", native.load_render)
+    depth = timed("render_depth", lambda: fv.render_depth(ver, tri, h, w))
+    check(np.isfinite(depth).all() and depth.min() >= 0 and depth.max() <= 1
+          and (depth > 0).sum() > 1000, "face viz: depth not in [0, 1] or empty")
+    overlay = timed("render_mesh_overlay", lambda: fv.render_mesh_overlay(img, ver, tri))
+    ncc = fv.calc_ncc_code(assets.bfm.u.reshape(-1))
+    pncc = timed("pncc", lambda: fv.pncc(img, [ver], tri, ncc))
+    # a face's UV map unwraps it smoothly (BFM_UV.mat is not in the repository):
+    # the vertices' normalised image positions, jittered by a seeded draw
+    xy = (ver[:2] - ver[:2].min(1, keepdims=True)) / np.ptp(ver[:2], axis=1, keepdims=True)
+    uv = np.clip(xy.T + 1e-3 * np.random.RandomState(SEED + 97).randn(ver.shape[1], 2), 0, 1)
+    tex = timed("uv_tex", lambda: fv.uv_tex(img, [ver], tri, uv))
+    pose_png = os.path.join(root, "pose.png")
+    posed = timed("viz_pose", lambda: fv.viz_pose(img.copy(), params[:1], [lmk], wfp=pose_png))
+    marked = timed("draw_landmarks", lambda: fv.draw_landmarks(img.copy(), lmk))
+    for name, out in (("overlay", overlay), ("pncc", pncc), ("pose", posed),
+                      ("landmarks", marked)):
+        check(out.dtype == np.uint8 and out.shape == img.shape and (out != img).any(),
+              f"face viz: {name} drew nothing")
+    check(tex.shape == (256, 256, 3) and (tex > 0).mean() > 0.01 and os.path.getsize(pose_png),
+          "face viz: uv texture empty or pose PNG missing")
+    faces = [ver, ver + np.array([[60.0], [0.0], [0.0]])]
+    rgb = img[..., ::-1]
+    for merge in (False, True):
+        for kind, writer, args in (("ply", mesh_io.ser_to_ply, (faces, tri, h)),
+                                   ("obj", mesh_io.ser_to_obj, (rgb, faces, tri, h))):
+            paths = timed(f"ser_to_{kind}{' merged' if merge else ''}", lambda: writer(
+                *args, os.path.join(root, f"mesh_{merge}.{kind}"), merge=merge))
+            counts = [mesh_counts(p) for p in paths]
+            n_v, n_f = (sum(c[i] for c in counts) for i in (0, 1))
+            check(len(paths) == (1 if merge else 2) and n_f == 2 * len(tri)
+                  and n_v == 2 * ver.shape[1],
+                  f"face viz: {kind} merge={merge}: {n_v} vertices, {n_f} faces")
+
+    cut = tri[:3000]
+    lib, plain = fv.render_depth(ver, cut, h, w), fv.render_depth_plain(ver, cut, h, w)
+    both = (lib > 0) & (plain > 0)
+    depth_err = float(np.abs(lib - plain)[both].max())
+    depth_miss = int(((lib > 0) != (plain > 0)).sum())
+    bg = img.astype(np.float32) / 255.0
+    lib_c = fv.rasterize_colors(np.ascontiguousarray(ver.T), cut, ncc, bg)
+    plain_c = fv.rasterize_colors_plain(np.ascontiguousarray(ver.T), cut, ncc, bg)
+    covered = (lib_c != bg).any(-1) | (plain_c != bg).any(-1)
+    colour_off = float((np.abs(lib_c - plain_c).max(-1) > 1e-4)[covered].mean())
+    print(f"face viz [{card}]: 1080p portrait, stage 1's nets on {device}: {len(boxes)} boxes, "
+          f"{ver.shape[1]} dense vertices ({int(inside.sum())} inside the frame), "
+          f"{len(tri)} Delaunay triangles, 68 landmarks; host ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; depth covers {int((depth > 0).sum())} px, uv texture "
+          f"{100 * (tex > 0).mean():.1f} % non-zero", flush=True)
+    print(f"face viz: render.cpp against its numpy versions on {len(cut)} triangles: depth "
+          f"{int(both.sum())} px both, max err {depth_err:.2e} (tol 1e-5), {depth_miss} px "
+          f"one only (tol 4); colours {int(covered.sum())} px covered, {100 * colour_off:.3f} % "
+          f"off by > 1e-4 (tol 2 %)", flush=True)
+    check(both.sum() > 100 and depth_err < 1e-5 and depth_miss <= 4 and colour_off < 0.02,
+          "face viz: the rasteriser disagrees with its numpy versions")
+    shutil.rmtree(root)
+
+
+def golden(card):
+    """Phase: the port's frozen f32 sampler on the card, TF32 off, against
+    the fixtures ``dawn_tpu_torch/scripts/make_golden.py`` wrote on the CPU
+    (pixels and flow grids within 5e-4, as the golden tests); returns its
+    (K1, ..., K6, K1p) launches."""
+    import numpy as np
+    import torch
+    from dawn_tpu_torch.scripts import make_golden as mg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = (0,) * 7
+    for size, (_, t, steps, _) in mg.CASES.items():
+        model = mg.golden_model(size, "cuda")
+        _reset_counts()
+        got = mg.strided(size, model.sample_one_video(**mg.golden_inputs(size)))
+        launches = _counts()
+        want = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                    "golden", f"torch_golden_{size}.npz"))
+        errs = {k: float(np.abs(got[k] - want[k]).max()) for k in ("pixels", "grid")}
+        rel = abs(float(got["checksum"]) - float(want["checksum"])) / float(want["checksum"])
+        print(f"golden: {size}^2 x {t} frames x {steps} steps, f32, card (TF32 off) against "
+              f"tests/golden/torch_golden_{size}.npz (CPU): max err pixels "
+              f"{errs['pixels']:.3e}, grid {errs['grid']:.3e} (tol 5e-4); checksum rel diff "
+              f"{rel:.2e}; K1 x {launches[0]}", flush=True)
+        check(max(errs.values()) <= 5e-4, f"golden {size}: {errs}")
+        check(launches == (10 * steps, 0, 0, 0, 0, 0, 0), f"golden {size} launches {launches}")
+        total = tuple(a + b for a, b in zip(total, launches))
+        del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def probe_scripts(card):
+    """Phase: every probe script's main() at full width on the card, each
+    run's kernel launches counted; returns {script: (K1, ..., K6, K1p)}."""
+    import tempfile
+    import torch
+    from dawn_tpu_torch.scripts import (probe_micro, probe_packed_compile, probe_train_phases,
+                                        probe_unet_phases, profile_sample, smoke_e2e)
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    out = os.path.join(tempfile.mkdtemp(prefix="dawn_smoke_"), "frames")
+    runs = [
+        (smoke_e2e, ["--img-size", "128", "--frames", "200", "--steps", "20", "--attn",
+                     "local", "--out", out], (400, 0)),
+        # ddim and the whole call: cold, 2 timed; the count: 1 and 2 steps
+        (profile_sample, ["--img-size", "128", "--frames", "200", "--repeats", "2"],
+         (6 * 200 + 30, 0)),
+        # (1 + repeats) calls of the UNet (10 K1) and of 4 level attentions
+        (probe_unet_phases, ["--img-size", "128", "--frames", "200", "--modules", "--extras",
+                             "--repeats", "2"], (3 * 14, 0)),
+        (probe_micro, ["--img-size", "128", "--frames", "200", "--repeats", "2"], (3, 0)),
+        # full step, B and C: 3 calls each of 10 K1; full step and C: 10 K2
+        (probe_train_phases, ["--batch", "4", "--frames", "20", "--dtype", "bf16",
+                              "--modules", "--repeats", "2"], (90, 60)),
+        # 4 calls of each launch row, 4 x 4 chunked
+        (probe_packed_compile, ["--repeats", "3"], (28, 0)),
+    ]
+    launches = {}
+    for module, argv, (k1, k2) in runs:
+        name = module.__name__.rsplit(".", 1)[1]
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = module.main(argv)
+        secs = time.perf_counter() - t0
+        launches[name] = _counts()
+        print(f"scripts [{card}]: {name} {' '.join(argv)}: {secs:.1f} s, launches (K1-K6, K1p) "
+              f"{launches[name]}", flush=True)
+        check(launches[name] == (k1, k2, 0, 0, 0, 0, 0),
+              f"{name} launches {launches[name]} != {k1} K1, {k2} K2")
+        if module is smoke_e2e:
+            check(res["k1_launches"] == (200, 200), f"smoke_e2e K1 per call {res['k1_launches']}")
+            print(f"scripts: smoke_e2e 128^2 T=200 f32: cold call {res['first_s']:.2f} s, warm "
+                  f"{res['second_s']:.3f} s, 200 K1 each", flush=True)
+        elif module is profile_sample:
+            print(f"scripts: profile_sample split: DDIM {res['ddim_ms']:.1f} ms + decode "
+                  f"{res['decode_ms']:.1f} ms = {res['ddim_ms'] + res['decode_ms']:.1f} ms "
+                  f"against the whole warm call {res['whole_ms']:.1f} ms", flush=True)
+        elif module is probe_train_phases:
+            print("scripts: probe_train_phases split (ms): " + ", ".join(
+                f"{k.strip()} {v:.1f}" for k, v in res.items()), flush=True)
+    shutil.rmtree(os.path.dirname(out))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3656,8 +3876,10 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    from dawn_tpu_torch.utils.profiling import card_peaks
+
     kind = torch.cuda.get_device_name(0)
-    peak_name, rates = peaks_for(kind)
+    peak_name, rates = card_peaks(kind)
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"peaks used: H100 {peak_name})", flush=True)
 
@@ -3712,6 +3934,9 @@ def main():
     clis = phase(trainer_clis, smi)
     phase(lfg_variants, smi)
     phase(pbnet_archs, smi)
+    phase(face_viz, smi)
+    gold = phase(golden, smi)
+    scripts = phase(probe_scripts, smi)
     k3 = phase(kernel_k3, smi, rates)
     k4 = phase(kernel_k4, smi, rates)
     grad_t400 = phase(temporal_attention_grad, smi)
@@ -3744,7 +3969,8 @@ def main():
              "temporal_attention_grad_T400": grad_t400, "bench_attention": bench,
              "lfg_train": lfg_train, "pbnet_train": pbnet_train, "trainer_clis": clis,
              "pbnet_sharded": pbnet_sharded, "train_cached_nccl": cached_nccl,
-             "ood_test": ood, "eval_quality_released": released, **extras}
+             "ood_test": ood, "eval_quality_released": released, **extras,
+             "golden": gold, **scripts}
     # (name, source, replaced TPU kernel, measurements, the path whose count is `launches`)
     rows = [("K1 local_attention_packed", "local_attention.cu", 299, k1, "pipeline"),
             ("K2 local_attention_packed_bwd", "local_attention_tiled_bwd.cu", 743, k2,

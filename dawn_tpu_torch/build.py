@@ -9,8 +9,9 @@ starts one ``nvcc`` per source at once. :func:`sources` and
 :func:`build_all` cover the kernels only.
 
 Each ``csrc/host/<name>.cpp`` (the threaded .npy reader of the training
-input pipeline) is compiled by ``g++ -O3 -fPIC -std=c++17 -shared -pthread``
-into ``_build/host-<name>-<hash>.so``, keyed on its source and the flags, at
+input pipeline, the mesh rasteriser of the face visualisations) is compiled
+by ``g++ -O3 -fPIC -std=c++17 -shared -pthread`` into
+``_build/host-<name>-<hash>.so``, keyed on its source and the flags, at
 first use (:func:`load_host`). Nothing here runs at import time.
 """
 

@@ -184,6 +184,20 @@ class FlowDiffusion(nn.Module):
         """sample_one_video on the batch rows ``rows`` and, with
         ``seq_mesh``, on this rank's frames of them; the condition's
         reference (frame 0) and the noise are those of the whole inputs."""
+        pred = self.sample_latents(sample_img, audio_hubert, pose, eye, bbox, init_pose,
+                                   init_eye, cond_scale, noise_seq, generator, rows, seq_mesh)
+        return self.decode_latents(sample_img.to(self.device, torch.float32)[rows], pred)
+
+    @torch.no_grad()
+    def sample_latents(self, sample_img, audio_hubert, pose, eye, bbox, init_pose=None,
+                       init_eye=None, cond_scale: float = 1.0, noise_seq=None,
+                       generator=None, rows: slice = slice(None),
+                       seq_mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """The first phase of :meth:`sample_one_video` (its arguments, and
+        ``rows``/``seq_mesh`` as in ``_sample``): the condition, the source
+        feature and mask embedding, the step-constant init conv, then the
+        sampler over the UNet. Returns the (B, T, h, w, 3) latent video:
+        flow (2 channels) and occlusion logit."""
         cfg, dev = self.config, self.device
         b_all, t_all = audio_hubert.shape[:2]
         sample_img, audio_hubert, pose, eye, bbox = (
@@ -207,12 +221,21 @@ class FlowDiffusion(nn.Module):
             return self.unet(x, tvec, c, drop, static_feat=static)
 
         with self.unet.sharded_over(seq_mesh):
-            pred = self.diffusion.sample(denoise, (b_all, t_all, ls, ls, 3), cond, cond_scale,
+            return self.diffusion.sample(denoise, (b_all, t_all, ls, ls, 3), cond, cond_scale,
                                          noise_seq, generator, dev, view=(rows, frames),
                                          group=self.unet.seq.group())
+
+    @torch.no_grad()
+    def decode_latents(self, sample_img: torch.Tensor, pred: torch.Tensor
+                       ) -> Dict[str, torch.Tensor]:
+        """The second phase of :meth:`sample_one_video`: the LFG decode of
+        every frame of ``pred`` ((B, T, h, w, 3), :meth:`sample_latents`)
+        from the (B, H, W, 3) sources on this model's device, all frames at
+        once or in chunks of ``lfg_decode_chunk``. Returns its dict."""
+        t = pred.shape[1]
         grid = pred[..., :2]
         conf = (pred[..., 2:3] + 1.0) * 0.5
-        ck = cfg.lfg_decode_chunk if cfg.lfg_decode_chunk else t
+        ck = self.config.lfg_decode_chunk if self.config.lfg_decode_chunk else t
         skips = self.generator.encode(sample_img)
         decoded = [self.generator.decode_shared(sample_img, skips, grid[:, i:i + ck],
                                                 conf[:, i:i + ck])

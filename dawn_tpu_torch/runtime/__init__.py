@@ -1,1 +1,2 @@
-"""Host-side native code of the port: the threaded .npy reader."""
+"""Host-side native code of the port: the threaded .npy reader and the
+mesh rasteriser."""

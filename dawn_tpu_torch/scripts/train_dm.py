@@ -118,6 +118,37 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return paths[-1] if paths else None
 
 
+def trainer_from_config(cfg_yaml: dict, stage: int = 1, device=None,
+                        lfg_ckpt: Optional[str] = None):
+    """The DMTrainer a training yaml (``configs/dm_train_stage{1,2}.yaml``
+    and its ``unet:``/``lfg:`` overrides) describes, with the frozen LFG
+    from ``lfg_ckpt`` when given; its generator is seeded with the yaml's
+    ``random_seed``. The caller seeds torch's initialisation."""
+    import torch
+
+    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
+    from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
+
+    cfg = DMTrainConfig(
+        img_size=cfg_yaml["img_size"], win_width=cfg_yaml.get("win_width", 20),
+        stage=stage, lr=cfg_yaml["lr"], total_steps=cfg_yaml["total_steps"],
+        grad_clip=cfg_yaml["grad_clip"], floss_weight=cfg_yaml["floss_weight"],
+        mouth_weight=cfg_yaml["mouth_weight"], null_cond_prob=cfg_yaml["null_cond_prob"],
+        fea_channels=cfg_yaml.get("fea_channels", 256),
+        remat=cfg_yaml.get("remat", "none"),
+        compute_dtype=getattr(torch, cfg_yaml.get("compute_dtype", "float32")))
+    unet_kw = dict(cfg_yaml.get("unet") or {})
+    if "dim_mults" in unet_kw:
+        unet_kw["dim_mults"] = tuple(unet_kw["dim_mults"])
+    lf = cfg_yaml.get("lfg") or {}
+    flow_ae = FlowAE(generator_kw=lf.get("generator"), region_kw=lf.get("region"),
+                     bg_kw=lf.get("bg"), flow_kw=lf.get("flow"))
+    if lfg_ckpt:
+        flow_ae.load_reference_checkpoint(lfg_ckpt)
+    return DMTrainer(cfg, flow_ae=flow_ae, unet_kw=unet_kw or None, device=device,
+                     seed=cfg_yaml.get("random_seed", 1234))
+
+
 def main(argv: Optional[List[str]] = None):
     """Run the training loop; returns the trainer."""
     args = parse_args(argv)
@@ -127,12 +158,10 @@ def main(argv: Optional[List[str]] = None):
     import torch.distributed as dist
     import yaml
 
-    from dawn_tpu_torch.models.lfg.flow_ae import FlowAE
     from dawn_tpu_torch.parallel.distributed import (maybe_initialize_distributed,
                                                      process_count)
     from dawn_tpu_torch.parallel.mesh import make_mesh
     from dawn_tpu_torch.train.data import HDTFVideoDataset, TeacherCache
-    from dawn_tpu_torch.train.train_dm import DMTrainConfig, DMTrainer
     from dawn_tpu_torch.utils.misc import save_snapshot_grid
     from dawn_tpu_torch.utils.tensorboard import EventWriter
 
@@ -147,26 +176,10 @@ def main(argv: Optional[List[str]] = None):
     torch.manual_seed(seed)
     os.makedirs(args.workdir, exist_ok=True)
 
-    cfg = DMTrainConfig(
-        img_size=cfg_yaml["img_size"], win_width=cfg_yaml.get("win_width", 20),
-        stage=args.stage, lr=cfg_yaml["lr"], total_steps=cfg_yaml["total_steps"],
-        grad_clip=cfg_yaml["grad_clip"], floss_weight=cfg_yaml["floss_weight"],
-        mouth_weight=cfg_yaml["mouth_weight"], null_cond_prob=cfg_yaml["null_cond_prob"],
-        fea_channels=cfg_yaml.get("fea_channels", 256),
-        remat=cfg_yaml.get("remat", "none"),
-        compute_dtype=getattr(torch, cfg_yaml.get("compute_dtype", "float32")))
-    unet_kw = dict(cfg_yaml.get("unet") or {})
-    if "dim_mults" in unet_kw:
-        unet_kw["dim_mults"] = tuple(unet_kw["dim_mults"])
-    lf = cfg_yaml.get("lfg") or {}
-    flow_ae = FlowAE(generator_kw=lf.get("generator"), region_kw=lf.get("region"),
-                     bg_kw=lf.get("bg"), flow_kw=lf.get("flow"))
-    if args.lfg_ckpt:
-        flow_ae.load_reference_checkpoint(args.lfg_ckpt)
-        if lead:
-            print(f"loaded frozen LFG from {args.lfg_ckpt}")
-    trainer = DMTrainer(cfg, flow_ae=flow_ae, unet_kw=unet_kw or None, device=args.device,
-                        seed=seed)
+    trainer = trainer_from_config(cfg_yaml, args.stage, args.device, args.lfg_ckpt)
+    if args.lfg_ckpt and lead:
+        print(f"loaded frozen LFG from {args.lfg_ckpt}")
+    cfg = trainer.config
 
     # stage 2: a random clip length of 30-40 diffused frames per step,
     # snapped to the config's length buckets, +1 for the split-off frame 0

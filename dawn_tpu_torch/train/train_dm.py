@@ -401,6 +401,16 @@ class DMTrainer:
                 g.copy_(f.view_as(g))
             metrics = dict(zip(metrics, all_reduce_sum(
                 torch.stack([v.detach() for v in metrics.values()]), mesh.group(None))))
+        norm, finite = self.apply_gradients(grads)
+        out = {k: v.item() for k, v in metrics.items()}
+        out.update(grads_finite=float(finite), grad_norm=norm)
+        return out
+
+    def apply_gradients(self, grads: List[torch.Tensor]) -> Tuple[float, bool]:
+        """The step's update from the UNet's ``.grad`` tensors ``grads``:
+        clip them by their global norm, take the Adam and schedule step
+        unless a gradient is not finite, clear the gradients, count the step
+        and update the EMA. Returns (the norm before clipping, finite)."""
         norm, finite = clip_by_global_norm_(grads, self.config.grad_clip)
         if finite:
             self.optimizer.step()
@@ -413,9 +423,7 @@ class DMTrainer:
                 params = [p.detach() for p in self.unet.parameters()]
                 torch._foreach_mul_(self.ema, d)
                 torch._foreach_add_(self.ema, params, alpha=1 - d)
-        out = {k: v.item() for k, v in metrics.items()}
-        out.update(grads_finite=float(finite), grad_norm=norm)
-        return out
+        return norm, finite
 
     def make_sharded_step(self, mesh: Mesh):
         """The train step over ``mesh`` (``dawn_tpu/train/train_dm.py:396-454``):

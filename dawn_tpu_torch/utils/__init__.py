@@ -1,1 +1,1 @@
-"""Host utilities of the training scripts: logging and seeding."""
+"""Host utilities of the scripts: logging, seeding and profiling."""
