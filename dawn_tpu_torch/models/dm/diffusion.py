@@ -18,6 +18,7 @@ import torch
 from dawn_tpu_torch.ops.quantile import quantile_nonneg
 from dawn_tpu_torch.ops.schedule import ddim_times, diffusion_buffers
 from dawn_tpu_torch.parallel.mesh import all_gather_cat
+from dawn_tpu_torch.utils import profiling
 
 # denoise_fn(x, time, cond, cond_drop_mask) -> eps prediction, all batched
 DenoiseFn = Callable[..., torch.Tensor]
@@ -71,10 +72,11 @@ class GaussianDiffusion:
         of a frame-sharded video) the quantile is the whole video's: the
         ranks' |x0| are all-gathered first."""
         b = x0.shape[0]
-        flat = all_gather_cat(x0.detach().reshape(b, -1).abs(), group, dim=1)
-        s = quantile_nonneg(flat, DYNAMIC_THRES_PERCENTILE)
-        s = s.clamp_min(1.0).reshape((b,) + (1,) * (x0.ndim - 1))
-        return torch.maximum(torch.minimum(x0, s), -s) / s
+        with profiling.span("threshold"):
+            flat = all_gather_cat(x0.detach().reshape(b, -1).abs(), group, dim=1)
+            s = quantile_nonneg(flat, DYNAMIC_THRES_PERCENTILE)
+            s = s.clamp_min(1.0).reshape((b,) + (1,) * (x0.ndim - 1))
+            return torch.maximum(torch.minimum(x0, s), -s) / s
 
     def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor, t: torch.Tensor,
                  fea: torch.Tensor, bbox_mask: torch.Tensor, cond: Optional[torch.Tensor],
@@ -138,17 +140,18 @@ class GaussianDiffusion:
         img = normal(0)
         for i, (time, time_next) in enumerate(ddim_times(self.timesteps,
                                                          self.sampling_timesteps)):
-            alpha, alpha_next = acp[time], acp[time_next]
-            tvec = torch.full((img.shape[0],), time, dtype=torch.int64, device=device)
-            pred_noise = self._cfg_eps(denoise_fn, img, tvec, cond, cond_scale)
-            x_start = self._threshold(self.predict_start_from_noise(img, tvec, pred_noise),
-                                      group)
-            sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
-                                     / (1 - alpha))
-            c = torch.sqrt(torch.clamp((1 - alpha_next) - sigma ** 2, min=0.0))
-            noise = normal(i + 1)
-            img = (x_start * torch.sqrt(alpha_next).item() + c.item() * pred_noise
-                   + float(time_next > 0) * sigma.item() * noise)
+            with profiling.span("ddim_step", step=i):
+                alpha, alpha_next = acp[time], acp[time_next]
+                tvec = torch.full((img.shape[0],), time, dtype=torch.int64, device=device)
+                pred_noise = self._cfg_eps(denoise_fn, img, tvec, cond, cond_scale)
+                x_start = self._threshold(
+                    self.predict_start_from_noise(img, tvec, pred_noise), group)
+                sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
+                                         / (1 - alpha))
+                c = torch.sqrt(torch.clamp((1 - alpha_next) - sigma ** 2, min=0.0))
+                noise = normal(i + 1)
+                img = (x_start * torch.sqrt(alpha_next).item() + c.item() * pred_noise
+                       + float(time_next > 0) * sigma.item() * noise)
         return img
 
     def _p_sample(self, denoise_fn: DenoiseFn, img: torch.Tensor, time: int, cond,

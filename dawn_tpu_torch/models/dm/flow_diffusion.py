@@ -35,6 +35,7 @@ from dawn_tpu_torch.models.dm.unet3d import Unet3D
 from dawn_tpu_torch.models.lfg.blocks import conv
 from dawn_tpu_torch.models.lfg.generator import LFGGenerator
 from dawn_tpu_torch.parallel.mesh import Mesh
+from dawn_tpu_torch.utils import profiling
 
 
 class FaceLocEncoder(nn.Module):
@@ -183,10 +184,13 @@ class FlowDiffusion(nn.Module):
                 seq_mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """sample_one_video on the batch rows ``rows`` and, with
         ``seq_mesh``, on this rank's frames of them; the condition's
-        reference (frame 0) and the noise are those of the whole inputs."""
-        pred = self.sample_latents(sample_img, audio_hubert, pose, eye, bbox, init_pose,
-                                   init_eye, cond_scale, noise_seq, generator, rows, seq_mesh)
-        return self.decode_latents(sample_img.to(self.device, torch.float32)[rows], pred)
+        reference (frame 0) and the noise are those of the whole inputs. The
+        top-level call of the tracing recorder (``dawn::sample``)."""
+        with profiling.call("sample"):
+            pred = self.sample_latents(sample_img, audio_hubert, pose, eye, bbox, init_pose,
+                                       init_eye, cond_scale, noise_seq, generator, rows,
+                                       seq_mesh)
+            return self.decode_latents(sample_img.to(self.device, torch.float32)[rows], pred)
 
     @torch.no_grad()
     def sample_latents(self, sample_img, audio_hubert, pose, eye, bbox, init_pose=None,

@@ -52,6 +52,7 @@ from dawn_tpu_torch.ops.norms import channel_layer_norm, video_group_norm
 from dawn_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 from dawn_tpu_torch.ops.t5bias import (t5_bias_matrix, t5_bias_windowed_vector,
                                        window_mask)
+from dawn_tpu_torch.utils import profiling
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -503,10 +504,17 @@ class Unet3D(nn.Module):
         static_feat: (B, T, H, W, dim) precomputed init_conv contribution of
           the step-constant channels, so each DDIM step convolves 3 channels.
         precompute_static: return that contribution and nothing else.
+
+        Every call but ``precompute_static`` is the tracing recorder's span
+        ``dawn::unet``.
         """
-        in_dtype = x.dtype
         if precompute_static:
-            return self._init_conv(x, slice(3, None), True).to(in_dtype)
+            return self._init_conv(x, slice(3, None), True).to(x.dtype)
+        with profiling.span("unet"):
+            return self._denoise(x, time, cond, cond_drop_mask, static_feat)
+
+    def _denoise(self, x, time, cond, cond_drop_mask, static_feat):
+        in_dtype = x.dtype
         if cond is not None and cond_drop_mask is not None:
             cond = torch.where(cond_drop_mask[..., None], torch.zeros_like(cond), cond)
         if cond is not None:

@@ -1,33 +1,186 @@
-"""Tracing and profiling utilities, and the card's peak rates.
+"""The port's tracing recorder, a ``torch.profiler`` exporter, timing
+helpers and the card's peak rates.
 
-Port of ``dawn_tpu/utils/profiling.py``. The reference's observability is
-ad-hoc time.time() probes ("DDIM time", "AE time", ..._init_cond_test.py:
-355-398; "unnormal load" warnings, train...6D.py:263-269) plus a Timer class
-(FaceBoxes/utils/timer.py). Here, as in the JAX module, the same surface is
-structured: a Timer with tic/toc/average, PhaseTimer context managers, a
-load-anomaly monitor (the same printed lines as JAX's), and
-:func:`device_trace`, a ``torch.profiler`` trace for TensorBoard, the
-counterpart of the ``jax.profiler`` trace.
+**The recorder** times the sampler from inside: its spans are
 
-The card runs asynchronously, so a host clock around work on it measures the
-enqueue unless the stream is synchronised: a :class:`PhaseTimer` given a
-CUDA device synchronises it at both ends of each phase.
+- ``dawn::sample``: one call of ``FlowDiffusion._sample`` (every sampling
+  entry goes through it), the top-level call;
+- ``dawn::ddim_step``: one iteration of the DDIM loop, with its step index;
+- ``dawn::unet``: one denoiser call (``Unet3D.forward``; the step-constant
+  ``precompute_static`` call is left out);
+- ``dawn::threshold``: the dynamic thresholding of one step (``abs``, the
+  all-gather of a frame-sharded video, the quantile, clamp and divide).
 
-:func:`card_peaks` holds the H100's published dense peak rates, which
-``chip_smoke.py`` and the probe scripts read for bounds and MFU.
+It is off by default, and then a span site costs one read of a module-level
+variable: no annotation, no CUDA event, no synchronisation, no allocation.
+An operator switches it on around the calls to trace::
+
+    profiling.enable("cuda")
+    ...  # calls of sample_one_video
+    profiling.resolve()            # reads the CUDA events (synchronises)
+    profiling.disable()
+    for r in profiling.records(): ...
+
+While on, each span keeps its name, the index of its top-level call (numbered
+from 0 after :func:`enable`), its parent span, its step, the host's
+``perf_counter_ns`` at both ends and, on a CUDA device, a CUDA event recorded
+at each end on the current stream (no synchronisation). At the start of each
+top-level call the recorder synchronises the card, records an anchor event and
+reads the host clock, so after :func:`resolve` each span's device times are on
+the host's clock too: the anchor's host time plus ``anchor.elapsed_time(event)``.
+Spans outside a top-level call keep host times only. Each span is also a
+``torch.profiler.record_function("dawn::<name>")`` annotation, so under any
+profiler its kernels and the card's idle gaps fall inside it on the profiler's
+own clock. :func:`count` records a number, tagged as a span is. Spans are
+recorded from the thread that runs the calls.
+
+:func:`device_trace` writes a ``torch.profiler`` trace for TensorBoard's
+profiler plugin, with the recorder on for its duration. :func:`time_ms` times
+a callable with CUDA events on the current stream. :func:`card_peaks` holds the
+H100's published dense peak rates, which ``chip_smoke.py`` and the probe
+scripts read for bounds and MFU.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 # Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 FLOP/s, f32 FLOP/s)
 PEAKS = {"PCIe": (2.0e12, 756e12, 51e12), "NVL": (3.9e12, 835e12, 60e12),
          "SXM": (3.35e12, 989e12, 67e12)}
+
+
+@dataclasses.dataclass
+class Record:
+    """One span or count. Times are ``time.perf_counter_ns``; a span's device
+    times are on the same clock, joined at its call's anchor, once resolved."""
+    name: str
+    call: int                   # top-level call from 0 after enable(); -1 outside one
+    parent: int                 # index in records() of the enclosing span; -1 at the top
+    step: Optional[int]         # the sampler step, inherited from the enclosing span
+    host_start_ns: int
+    host_end_ns: int
+    device_start_ns: Optional[float] = None   # when the card reached the start event
+    device_end_ns: Optional[float] = None
+    value: Optional[float] = None             # a count's number; None for a span
+
+
+class _Recorder:
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.records: List[Record] = []
+        self.calls = 0
+        self._call = -1
+        self._stack: List[int] = []
+        self._anchors: List[Tuple[int, Any]] = []          # per call: (host ns, event)
+        self._pending: List[Tuple[int, Any, Any]] = []     # (record, start, end)
+
+    def _event(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _open(self, name: str, step: Optional[int]) -> int:
+        parent = self._stack[-1] if self._stack else -1
+        if step is None and parent >= 0:
+            step = self.records[parent].step
+        self.records.append(Record(name, self._call, parent, step, 0, 0))
+        self._stack.append(len(self.records) - 1)
+        return len(self.records) - 1
+
+    @contextlib.contextmanager
+    def span(self, name: str, step: Optional[int], top: bool):
+        with torch.profiler.record_function(f"dawn::{name}"):
+            if top and not self._stack:
+                self._call, self.calls = self.calls, self.calls + 1
+                if self.cuda:
+                    torch.cuda.synchronize(self.device)
+                    anchor = self._event()
+                    self._anchors.append((time.perf_counter_ns(), anchor))
+            index = self._open(name, step)
+            record = self.records[index]
+            timed = self.cuda and record.call >= 0
+            record.host_start_ns = time.perf_counter_ns()
+            start = self._event() if timed else None
+            try:
+                yield
+            finally:
+                if timed:
+                    self._pending.append((index, start, self._event()))
+                record.host_end_ns = time.perf_counter_ns()
+                self._stack.pop()
+                if not self._stack:
+                    self._call = -1
+
+    def count(self, name: str, value: float) -> None:
+        index = self._open(name, None)
+        self._stack.pop()
+        record = self.records[index]
+        record.host_start_ns = record.host_end_ns = time.perf_counter_ns()
+        record.value = value
+
+    def resolve(self) -> None:
+        if self._pending:
+            torch.cuda.synchronize(self.device)
+        for index, start, end in self._pending:
+            record = self.records[index]
+            host_ns, anchor = self._anchors[record.call]
+            record.device_start_ns = host_ns + anchor.elapsed_time(start) * 1e6
+            record.device_end_ns = record.device_start_ns + start.elapsed_time(end) * 1e6
+        self._pending.clear()
+
+
+_on: Optional[_Recorder] = None      # the recorder while tracing is on
+_last: Optional[_Recorder] = None    # the latest one, read after disable()
+_OFF = contextlib.nullcontext()
+
+
+def enable(device) -> None:
+    """Switches the recorder on, afresh: top-level calls numbered from 0 on
+    ``device`` (CUDA events and the anchor only on a CUDA device)."""
+    global _on, _last
+    _on = _last = _Recorder(device)
+
+
+def disable() -> None:
+    """Switches the recorder off; what it kept stays readable."""
+    global _on
+    _on = None
+
+
+def records() -> List[Record]:
+    """What the latest recorder kept, in the order the spans opened."""
+    return _last.records if _last is not None else []
+
+
+def resolve() -> None:
+    """Reads the pending CUDA events into the records' device times (it
+    synchronises the card first)."""
+    if _last is not None:
+        _last.resolve()
+
+
+def span(name: str, step: Optional[int] = None):
+    """A span ``dawn::<name>`` around the block while the recorder is on."""
+    return _OFF if _on is None else _on.span(name, step, False)
+
+
+def call(name: str):
+    """A top-level span: it numbers the call and takes the anchor (nested
+    inside another span, it is a plain span)."""
+    return _OFF if _on is None else _on.span(name, None, True)
+
+
+def count(name: str, value: float) -> None:
+    """Records ``value`` under ``name``, tagged as a span opened here is."""
+    if _on is not None:
+        _on.count(name, value)
 
 
 def card_peaks(name: str) -> Tuple[str, Tuple[float, float, float]]:
@@ -83,95 +236,26 @@ def time_ms(fn: Callable[[], Any], device, repeats: int = 3) -> Tuple[float, flo
     return first, min(s.elapsed_time(e) for s, e in events), out
 
 
-class Timer:
-    """tic/toc with running average (FaceBoxes/utils/timer.py:13)."""
-
-    def __init__(self):
-        self.total_time = 0.0
-        self.calls = 0
-        self.start_time = 0.0
-        self.diff = 0.0
-        self.average_time = 0.0
-
-    def tic(self):
-        self.start_time = time.time()
-
-    def toc(self, average: bool = True) -> float:
-        self.diff = time.time() - self.start_time
-        self.total_time += self.diff
-        self.calls += 1
-        self.average_time = self.total_time / self.calls
-        return self.average_time if average else self.diff
-
-    def clear(self):
-        self.__init__()
-
-
-class PhaseTimer:
-    """Named phase timers with a summary: the structured version of the
-    reference's "DDIM time ..." prints. With a CUDA ``device``, each phase
-    starts and ends with ``torch.cuda.synchronize(device)``, so its time is
-    the device work enqueued inside it."""
-
-    def __init__(self, verbose: bool = True, device=None):
-        self.times: Dict[str, float] = {}
-        self.verbose = verbose
-        device = None if device is None else torch.device(device)
-        self.device = device if device is not None and device.type == "cuda" else None
-
-    def _sync(self):
-        if self.device is not None:
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.times[name] = self.times.get(name, 0.0) + dt
-            if self.verbose:
-                print(f"{name} time: {dt:.3f}s")
-
-    def summary(self) -> str:
-        total = sum(self.times.values())
-        lines = [f"  {k}: {v:.3f}s ({100 * v / max(total, 1e-9):.0f}%)"
-                 for k, v in sorted(self.times.items(), key=lambda kv: -kv[1])]
-        return "\n".join([f"phases (total {total:.3f}s):"] + lines)
-
-
-class LoadAnomalyMonitor:
-    """Flags slow data-loading steps (train...6D.py:263-269 'unnormal load')."""
-
-    def __init__(self, threshold_s: float = 1.0):
-        self.threshold = threshold_s
-        self.anomalies = 0
-        self._t0 = time.time()
-
-    def reset(self):
-        self._t0 = time.time()
-
-    def check(self, step: int) -> Optional[float]:
-        dt = time.time() - self._t0
-        if dt > self.threshold:
-            self.anomalies += 1
-            print(f"unnormal load {dt:.2f}s at step {step}")
-            return dt
-        return None
-
-
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """A ``torch.profiler`` trace of the block (host ops, and the card's
     kernels when CUDA is available) written to ``log_dir`` for TensorBoard's
-    profiler plugin; yields the profiler."""
+    profiler plugin, the recorder on for the block (unless it already is),
+    so the trace carries the ``dawn::`` spans; yields the profiler."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+    owner = _on is None
+    if owner:
+        enable("cuda" if cuda else "cpu")
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+            yield prof
+    finally:
+        if owner:
+            resolve()
+            disable()

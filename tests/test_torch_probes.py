@@ -1,10 +1,8 @@
 """The port's profiling utilities and its probe scripts on the CPU.
 
-- ``utils/profiling.py``: ``Timer``, ``PhaseTimer`` and
-  ``LoadAnomalyMonitor`` print the same lines as the JAX package's under
-  the same (faked) clock; ``device_trace`` writes a TensorBoard trace;
+- ``utils/profiling.py``: ``device_trace`` writes a TensorBoard trace;
   ``card_peaks`` and ``band_pairs`` give the numbers ``chip_smoke.py``'s
-  kernel bounds were computed with.
+  kernel bounds were computed with (its recorder: ``test_torch_trace.py``).
 - ``FlowDiffusion.sample_latents`` then ``decode_latents`` (the two phases
   ``profile_sample`` times) give ``sample_one_video``'s bits.
 - each script's flags (the JAX script's defaults, ``--device`` in place of
@@ -12,16 +10,13 @@
   2 DDIM steps, f32), where every kernel wrapper runs its plain version.
 """
 
-import itertools
 import os
-import time
 
 import numpy as np
 import pytest
 import torch
 import yaml
 
-from dawn_tpu.utils import profiling as jax_profiling
 from dawn_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
 from dawn_tpu_torch.scripts import (make_golden, probe_micro, probe_packed_compile,
                                     probe_train_phases, probe_unet_phases, profile_sample,
@@ -30,45 +25,6 @@ from dawn_tpu_torch.utils import profiling
 from test_torch_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _drive(module, monkeypatch):
-    """Print every line of the profiling classes under a clock that moves
-    0.375 s a reading; returns the summary."""
-    for name in ("time", "perf_counter"):
-        ticks = itertools.count()
-        monkeypatch.setattr(time, name, lambda ticks=ticks: 0.375 * next(ticks))
-    timer = module.Timer()
-    timer.tic()
-    print(timer.toc(), timer.toc(average=False), timer.calls)
-    pt = module.PhaseTimer(verbose=True)
-    for name in ("ddim", "ae", "ddim"):
-        with pt.phase(name):
-            pass
-    monitor = module.LoadAnomalyMonitor(threshold_s=0.5)
-    monitor.reset()
-    print(monitor.check(3), monitor.check(4), monitor.anomalies)
-    return pt.summary()
-
-
-def test_profiling_prints_the_jax_lines(monkeypatch, capsys):
-    want_summary = _drive(jax_profiling, monkeypatch)
-    want = capsys.readouterr().out
-    got_summary = _drive(profiling, monkeypatch)
-    got = capsys.readouterr().out
-    assert got == want and "ddim time: 0.375s" in got and "unnormal load" in got
-    assert got_summary == want_summary and "ddim: 0.750s" in got_summary
-
-
-def test_phase_timer_synchronises_only_a_card(monkeypatch):
-    assert profiling.PhaseTimer(device="cpu").device is None
-    assert profiling.PhaseTimer().device is None
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append(device))
-    pt = profiling.PhaseTimer(verbose=False, device="cuda:0")
-    with pt.phase("step"):
-        assert len(calls) == 1
-    assert calls == [torch.device("cuda:0")] * 2 and pt.times["step"] >= 0
 
 
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
